@@ -1,5 +1,5 @@
-// Walk kernel: parse blosclz streams into compacted records, one thread
-// per row.
+// Walk kernel: parse blosclz streams into compacted records, one warp per
+// row.
 //
 // Replaces cblosc_tpu/tpu/structured.py:_walk_impl (a batched
 // lax.while_loop that parses up to 8 tokens per window read). The wire
@@ -13,99 +13,126 @@
 //            (token & 31) << 8 | next byte, + 1, or the 31/255 far escape
 //            with two more bytes + 8192; err if distance > op,
 //            op + len > out_len, or the next token lies at/past csize
+//   budget   err when a record would be the (E+1)-th
 //   ok       = !err && op == out_len at fin
 // Records are written compacted, valid first: (kind 0, src, dst, len)
-// for a literal, (kind 1, distance, dst, len) for a match; the wrapper
-// pre-fills the rest with kind -1. A row needing more than E records
-// reports not-ok (the caller decodes it with the generic decoder).
+// for a literal, (kind 1, distance, dst, len) for a match, then kind -1
+// and zeros up to E; the kernel writes every column. A row needing more
+// than E records reports not-ok (the caller decodes it with the generic
+// decoder). dist is the first match's distance, uni says all share it.
 //
-// What bounds it on an H100: latency, not bandwidth. The bytes moved are
-// the compressed rows plus 16 bytes per record, far below 3.35 TB/s at
-// any realistic row count; each thread's parse is a serial chain of
-// dependent loads. Design: no windows, no subwindow selection, no
-// per-step record slots (that machinery was TPU gather avoidance); a
-// thread reads its row's bytes through the cache, and rows run
-// concurrently across threads, so the card fills once the batch has a
-// few thousand live rows.
+// What bounds it on an H100: latency. The bytes moved (the compressed rows
+// plus 16 bytes per record slot) take about a microsecond at 3.35 TB/s;
+// a row's parse is a chain of dependent steps, one per token. The kernel
+// evaluates the token at every position of a 128-position window at once
+// (blosclz_parse.cuh, 16 bytes a lane from a cp.async-staged copy of the
+// row), follows the chain through the table with one shared-memory load
+// per one to four tokens, and writes the records as consecutive stores of
+// consecutive lanes. One warp owns a row and four rows share a CTA, so
+// many short rows (8 KB splits at the speed clevels: the 128 walk rows of
+// a 4 MB chunk run on 32 SMs, 2048 rows fill the card) hide one another's
+// latency. A long row (128 or 256 KB splits at the ratio clevels) runs
+// alone on its warp (about 97 ns per token on an NVIDIA H100 80GB HBM3
+// at 700.00 W).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "blosclz_parse.cuh"
+
 namespace {
 
-__device__ __forceinline__ int rd(const uint8_t* __restrict__ s, long long x,
-                                  int cs, int W) {
-  return (x >= 0 && x < cs && x < W) ? (int)s[x] : 0;
-}
+constexpr int kWarps = 4;         // rows per CTA
+constexpr int kStage = 2048;      // bytes per stage (two per warp)
 
-__global__ void walk_kernel(const uint8_t* __restrict__ slots, int N, int W,
-                            const int32_t* __restrict__ csizes, int out_len,
-                            int E, int32_t* __restrict__ kind,
-                            int32_t* __restrict__ arg,
-                            int32_t* __restrict__ dst,
-                            int32_t* __restrict__ len,
-                            int32_t* __restrict__ dist_out,
-                            uint8_t* __restrict__ uni_out,
-                            uint8_t* __restrict__ ok_out) {
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
+__global__ void __launch_bounds__(kWarps * 32)
+walk_kernel(const uint8_t* __restrict__ slots, int N, int W,
+            const int32_t* __restrict__ csizes, int out_len, int E,
+            int32_t* __restrict__ kind, int32_t* __restrict__ arg,
+            int32_t* __restrict__ dst, int32_t* __restrict__ len,
+            int32_t* __restrict__ dist_out, uint8_t* __restrict__ uni_out,
+            uint8_t* __restrict__ ok_out) {
+  __shared__ __align__(16) uint8_t stage_buf[kWarps][2 * kStage];
+  __shared__ __align__(16) blz::Tables tables[kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarps + warp;
+  if (row >= N) return;          // warp-uniform: no block barrier below
   const uint8_t* s = slots + row * (long long)W;
   const int cs = csizes[row];
+  const int lim = cs < W ? cs : W;
   const long long rb = row * (long long)E;
-  long long ip = 1, op = 0;
-  int token = rd(s, 0, cs, W) & 31;
-  int extacc = 0, dist = 0, cnt = 0;
-  bool uni = true, err = cs <= 0, fin = cs <= 1;
+  blz::Stage<kStage> st;
+  st.init(stage_buf[warp], s, lim, 0);
+  const blz::GlobalReader g{s, lim, 0};
+  blz::Tables& tb = tables[warp];
+
+  int t = 0, cnt = 0, dist = 0;
+  long long op = 0;
+  bool uni = true, err = cs <= 0, fin = cs <= 1, first = true;
   while (!(err || fin)) {
-    if (token < 32) {
-      const int llen = token + 1;
-      const long long ip2 = ip + llen, op2 = op + llen;
-      if (op2 > out_len || ip2 > cs || cnt >= E) { err = true; break; }
-      kind[rb + cnt] = 0; arg[rb + cnt] = (int)ip;
-      dst[rb + cnt] = (int)op; len[rb + cnt] = llen; ++cnt;
-      op = op2;
-      if (ip2 >= cs) { ip = ip2; fin = true; }
-      else { token = rd(s, ip2, cs, W); ip = ip2 + 1; }
-    } else {
-      const bool has_ext = (token >> 5) == 7;
-      int kk = 0;
-      while (kk < 8 && rd(s, ip + kk, cs, W) == 255) ++kk;
-      if (has_ext && kk >= 8) {
-        if (ip + 8 >= cs) { err = true; break; }
-        ip += 8;
-        extacc += 8 * 255;
-        continue;
-      }
-      const int lastb = rd(s, ip + (kk < 7 ? kk : 7), cs, W);
-      const long long mlen =
-          (has_ext ? 6LL + extacc + 255LL * kk + lastb : (token >> 5) - 1) + 3;
-      const int eoff = has_ext ? kk + 1 : 0;
-      const int dhi = token & 31;
-      const int dlo = rd(s, ip + eoff, cs, W);
-      const bool far = dlo == 255 && dhi == 31;
-      const int b1 = rd(s, ip + eoff + 1, cs, W);
-      const int b2 = rd(s, ip + eoff + 2, cs, W);
-      const int bk = far ? (b1 << 8) + b2 + 8192 : (dhi << 8) + dlo + 1;
-      const long long ip4 = ip + eoff + 1 + (far ? 2 : 0);
-      if (bk > op || op + mlen > out_len || ip4 >= cs || cnt >= E) {
-        err = true;
-        break;
-      }
-      kind[rb + cnt] = 1; arg[rb + cnt] = bk;
-      dst[rb + cnt] = (int)op; len[rb + cnt] = (int)mlen; ++cnt;
-      const int d2 = dist == 0 ? bk : dist;
-      uni = uni && bk == d2;
-      dist = d2;
-      op += mlen;
-      token = rd(s, ip4, cs, W);
-      ip = ip4 + 1;
-      extacc = 0;
+    st.ensure(t);
+    blz::Rec a, b;
+    int c;
+    const int n = blz::parse_step(st, g, tb, t, cs, first, a, b, c);
+    first = false;
+    const bool v0 = lane < n, v1 = lane + 32 < n;
+    const int L0 = v0 ? a.len : 0, L1 = v1 ? b.len : 0;
+    const int i0 = blz::warp_incl_scan(L0);
+    const int i1 = blz::warp_incl_scan(L1) + __shfl_sync(blz::kFull, i0, 31);
+    const long long op0 = op + i0 - L0, op1 = op + i1 - L1;
+    const int c0 = cnt + lane, c1 = cnt + lane + 32;
+    const bool e0 = a.perr || op0 + L0 > out_len || c0 >= E ||
+                    (a.match && a.arg > op0);
+    const bool e1 = b.perr || op1 + L1 > out_len || c1 >= E ||
+                    (b.match && b.arg > op1);
+    const int f = blz::first_set(__ballot_sync(blz::kFull, v0 && (e0 || a.fin)),
+                                 __ballot_sync(blz::kFull, v1 && (e1 || b.fin)),
+                                 n);
+    // record f stops the row: emitted only when it is a literal ending at
+    // csize without error
+    int fstate = 0;              // 1: err, 2: fin without err
+    if (f < n) fstate = blz::pick(e0 ? 1 : 2, e1 ? 1 : 2, f);
+    const int nemit = f + (fstate == 2 ? 1 : 0);
+    const bool m0 = lane < nemit, m1 = lane + 32 < nemit;
+    if (m0) {
+      kind[rb + c0] = a.match ? 1 : 0;
+      arg[rb + c0] = a.arg;
+      dst[rb + c0] = (int)op0;
+      len[rb + c0] = L0;
     }
+    if (m1) {
+      kind[rb + c1] = b.match ? 1 : 0;
+      arg[rb + c1] = b.arg;
+      dst[rb + c1] = (int)op1;
+      len[rb + c1] = L1;
+    }
+    // dist: the first emitted match's distance; uni: all emitted share it
+    const unsigned mm0 = __ballot_sync(blz::kFull, m0 && a.match);
+    const unsigned mm1 = __ballot_sync(blz::kFull, m1 && b.match);
+    if (mm0 | mm1) {
+      if (dist == 0) dist = blz::pick(a.arg, b.arg, blz::first_set(mm0, mm1, 64));
+      uni = uni && !__any_sync(blz::kFull, (m0 && a.match && a.arg != dist) ||
+                                             (m1 && b.match && b.arg != dist));
+    }
+    cnt += nemit;
+    if (nemit > 0) op += blz::pick(i0, i1, nemit - 1);  // through the last emitted
+    if (fstate == 1) err = true;
+    else if (fstate == 2) fin = true;
+    else t = c;
   }
-  dist_out[row] = dist;
-  uni_out[row] = uni ? 1 : 0;
-  ok_out[row] = (!err && op == out_len) ? 1 : 0;
+  for (int i = cnt + lane; i < E; i += 32) {
+    kind[rb + i] = -1;
+    arg[rb + i] = 0;
+    dst[rb + i] = 0;
+    len[rb + i] = 0;
+  }
+  if (lane == 0) {
+    dist_out[row] = dist;
+    uni_out[row] = uni ? 1 : 0;
+    ok_out[row] = (!err && op == out_len) ? 1 : 0;
+  }
 }
+
 
 }  // namespace
 
@@ -114,8 +141,7 @@ extern "C" int walk_launch(const void* slots, int N, int W, const void* csizes,
                            void* dst, void* len, void* dist, void* uni,
                            void* ok, void* stream) {
   if (N > 0) {
-    const int threads = 128;
-    walk_kernel<<<(N + threads - 1) / threads, threads, 0,
+    walk_kernel<<<(N + kWarps - 1) / kWarps, kWarps * 32, 0,
                   (cudaStream_t)stream>>>(
         (const uint8_t*)slots, N, W, (const int32_t*)csizes, out_len, E,
         (int32_t*)kind, (int32_t*)arg, (int32_t*)dst, (int32_t*)len,

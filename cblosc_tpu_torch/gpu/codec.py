@@ -21,9 +21,10 @@ Mining per-row adaptive distances (clevel >= 5) is not ported yet:
 different bytes.
 
 The generic decoder accepts any blosclz stream. :func:`decode` launches
-the hand-written kernel (csrc/decode.cu, one thread per row) on a CUDA
-tensor and runs :func:`_decode_plain` on a CPU tensor; both reproduce
-cblosc_tpu.tpu.codec.decode's (out, produced, err), errors included.
+the hand-written kernel (csrc/decode.cu, a CTA of three pipelined warps
+per row, the row's output in shared memory) on a CUDA tensor and runs :func:`_decode_plain`
+on a CPU tensor; both reproduce cblosc_tpu.tpu.codec.decode's (out,
+produced, err), errors included.
 """
 
 from __future__ import annotations
@@ -307,14 +308,14 @@ def decode(slots: torch.Tensor, csizes: torch.Tensor, out_len: int):
     N, W = slots.shape
     if csizes.shape[0] != N or csizes.device != slots.device:
         raise ValueError("csizes must be (N,) on the slots' device")
-    out = torch.zeros((N, out_len), dtype=U8, device=slots.device)
+    out = torch.empty((N, out_len), dtype=U8, device=slots.device)  # all written
     produced = torch.empty(N, dtype=torch.int32, device=slots.device)
-    err = torch.empty(N, dtype=U8, device=slots.device)
+    err = torch.empty(N, dtype=torch.bool, device=slots.device)
     code = kernels.fn("decode_one")(
         slots.data_ptr(), N, W, csizes.data_ptr(), out_len, out.data_ptr(),
         produced.data_ptr(), err.data_ptr(), kernels.stream_ptr(slots))
     kernels.check("decode_one", code)
-    return out, produced, err.bool()
+    return out, produced, err
 
 
 def _decode_plain(slots: torch.Tensor, csizes: torch.Tensor, out_len: int):

@@ -7,7 +7,7 @@ PyTorch counterpart of cblosc_tpu/tpu/structured.py, kernel leg only:
      and tiled from their d-byte pattern, without any parse;
   2. WALK: the remaining live rows are parsed into compacted records
      (kind, arg, dst, len) plus per-row uniform-distance and ok flags —
-     the hand-written walk kernel (csrc/walk.cu, one thread per row) on
+     the hand-written walk kernel (csrc/walk.cu, one warp per row) on
      a CUDA tensor, :func:`_walk_plain` on a CPU tensor;
   3. PLACE: walked rows of the pure-tile shape (a literal prefix of d
      bytes, one match at pow2 distance d <= 256, a 1-byte tail) are
@@ -82,19 +82,17 @@ def walk(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
     if csizes.shape[0] != N or csizes.device != slots.device:
         raise ValueError("csizes must be (N,) on the slots' device")
     dev = slots.device
-    kind = torch.full((N, E), -1, dtype=I32, device=dev)
-    arg, dst, ln = (torch.zeros((N, E), dtype=I32, device=dev)
-                    for _ in range(3))
+    # the kernel writes every column, the kind -1 / zero tail included
+    kind, arg, dst, ln = torch.empty((4, N, E), dtype=I32, device=dev).unbind(0)
     dist = torch.empty(N, dtype=I32, device=dev)
-    uni = torch.empty(N, dtype=U8, device=dev)
-    ok = torch.empty(N, dtype=U8, device=dev)
+    uni, ok = torch.empty((2, N), dtype=torch.bool, device=dev).unbind(0)
     code = kernels.fn("walk")(
         slots.data_ptr(), N, W, csizes.data_ptr(), out_len, E,
         kind.data_ptr(), arg.data_ptr(), dst.data_ptr(), ln.data_ptr(),
         dist.data_ptr(), uni.data_ptr(), ok.data_ptr(),
         kernels.stream_ptr(slots))
     kernels.check("walk", code)
-    return (kind, arg, dst, ln), dist, uni.bool(), ok.bool()
+    return (kind, arg, dst, ln), dist, uni, ok
 
 
 def _walk_plain(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,

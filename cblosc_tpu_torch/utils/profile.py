@@ -8,10 +8,13 @@ For the bench geometry (clevel 1, 4 MB chunks, shuffle) on two data
 sets (``synth`` sbits 19 typesize 8, the bench data; int32 arange
 typesize 4, whose decode runs the walk and expand kernels) it profiles
 one steady call each of ``gpu.pipeline.compress_blocks`` and
-``decompress_blocks`` and prints one JSON line per call: the host wall
-time of the call (ending in a synchronize), the summed device time of
-its kernels, their share of the wall time (the device-busy share; the
-rest is idle, waiting on the host), and the top kernels by device time.
+``decompress_blocks``; then one steady byte-API ``decompress_ctx`` of a
+clevel-9 chunk the host engine writes (256 KB of low-entropy bytes, the
+token-dense split the generic decoder takes). It prints one JSON line
+per call: the host wall time of the call (ending in a synchronize), the
+summed device time of its kernels, their share of the wall time (the
+device-busy share; the rest is idle, waiting on the host), and the top
+kernels by device time.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..core import policy
+from .. import api
+from ..core import engine, policy
 from ..format import constants as C
 from ..gpu import pipeline
 from .timing import synth
@@ -37,6 +41,28 @@ def _device_us(evt) -> float:
         if v is not None:
             return float(v)
     return 0.0
+
+
+def kernel_ms(fn, kernel: str, calls: int = 20) -> float:
+    """Mean device milliseconds per launch of the kernels whose name
+    contains `kernel`, over `calls` calls of fn: the card's own time for
+    the kernel, without the host work of the call around it."""
+    fn()                                           # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    hits = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and kernel in e.key]
+    n = sum(e.count for e in hits)
+    if n == 0:
+        raise RuntimeError(f"no launch of a kernel named *{kernel}* was traced")
+    return sum(_device_us(e) for e in hits) / n / 1e3
 
 
 def _profile(fn, label: str, card: str) -> dict:
@@ -102,6 +128,13 @@ def main() -> None:
                           ("decompress_blocks", dec)):
             r = _profile(fn, f"{label} {name} {ws >> 20} MB", card)
             print(json.dumps(r))
+    n = 256 << 10
+    low = (np.random.default_rng(11).integers(0, 8, n, dtype=np.uint8) * 16)
+    ctx = engine.build_context(9, C.NOSHUFFLE, 1, n, n + 16, C.BLOSCLZ)
+    chunk = engine.compress_chunk(ctx, low.tobytes())
+    r = _profile(lambda: api.decompress_ctx(chunk, device=dev),
+                 "decompress_ctx host-engine clevel-9 256 KB", card)
+    print(json.dumps(r))
 
 
 if __name__ == "__main__":

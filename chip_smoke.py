@@ -9,11 +9,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card's name and power limit; build the CUDA kernels from
      cblosc_tpu_torch/csrc (in parallel, into build/torch_kernels/);
   2. each kernel against its plain PyTorch version on the same CUDA
-     tensors, outputs equal (tolerance 0: integer code), with times;
+     tensors, outputs equal (tolerance 0: integer code): the main path's
+     inputs, host-encoder rows and raw streams generated token by token
+     (far matches, escape runs, narrow and unaligned rows, corruptions,
+     random bytes). Times: each kernel's wrapper called alone between
+     CUDA events (the "ms" of the kernels line, which includes the host
+     work of a short call), beside the kernel's device time per launch
+     (torch.profiler, "device_ms") and the wrapper's time per call of 20
+     back to back ("call_ms"); the walk on both its main-path shapes
+     (the long row's figures as "long_*"); the token count and ns per
+     token of the timed 256 KB decode row;
   3. the main path: byte-API round trips (compress_ctx/decompress_ctx)
      on 4 MB buffers at clevel 1 plus a clevel-9 host-engine chunk
      decoded on the card; every launch counter is zeroed just before
-     and read just after, and each kernel must have launched;
+     and read just after, and each kernel must have launched; then the
+     clevel-9 chunk's decode is timed warm (CUDA events, median of 5);
   4. the bench geometry on device-resident data: a 128 MB working set
      through gpu.pipeline.compress_blocks -> mask_past_csize ->
      decompress_blocks, verified equal, timed with CUDA events (call
@@ -40,6 +50,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
 CHUNK = 4 << 20               # bench.py chunk size
 WORKSET = 128 << 20           # bench.py working set
+BATCH = 20                    # back-to-back calls per kernel timing sample
 
 
 def check(cond, msg: str) -> None:
@@ -55,17 +66,32 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def _ms(dev, fn, reps, warmup=1):
-    """Median ms of fn(): CUDA events on the card; the host clock only in
-    a CPU rehearsal, whose numbers are never reported as device times."""
+def _ms(dev, fn, reps, warmup=1, batch=1):
+    """Median ms per call of fn(), each sample a run of `batch` calls back
+    to back: CUDA events on the card; the host clock only in a CPU
+    rehearsal, whose numbers are never reported as device times."""
+    def run():
+        for _ in range(batch):
+            fn()
+
     if dev.type == "cuda":
         from cblosc_tpu_torch.utils.timing import time_ms
 
-        return time_ms(fn, reps=reps, warmup=warmup)
+        return time_ms(run, reps=reps, warmup=warmup) / batch
     t0 = time.perf_counter()
     for _ in range(reps):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / reps
+        run()
+    return (time.perf_counter() - t0) * 1e3 / reps / batch
+
+
+def _device_ms(dev, fn, kernel: str) -> float:
+    """Device ms per launch of `kernel` (torch.profiler); NaN in a CPU
+    rehearsal, which has no device time."""
+    if dev.type != "cuda":
+        return float("nan")
+    from cblosc_tpu_torch.utils.profile import kernel_ms
+
+    return kernel_ms(fn, kernel)
 
 
 def _maxdiff(a, b) -> int:
@@ -189,6 +215,18 @@ def chunk_rows(dev, chunk):
 # phases
 # ---------------------------------------------------------------------------
 
+def generated_rows(dev):
+    """[(rows, csizes, out_len)] of cblosc_tpu_torch.utils.streams."""
+    from cblosc_tpu_torch.utils import streams
+
+    out = []
+    for seed, n, width in streams.CARD_CASES:
+        buf, cs, _ = streams.generated_rows(seed, n, width)
+        out.append((torch.from_numpy(buf).to(dev), torch.from_numpy(cs).to(dev),
+                    n))
+    return out
+
+
 def phase_kernels(dev, chunk_bytes, host_chunk, reps):
     """Each kernel against its plain version, on the same tensors."""
     from cblosc_tpu_torch.gpu import codec, expand, structured
@@ -197,18 +235,22 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
     a_rows, a_cs, n = main_path_walk_rows(dev, chunk_bytes)
     h_rows, h_cs, hn, nvalid = host_encoder_rows(dev)
     c_rows, c_cs, cn = chunk_rows(dev, host_chunk)
+    gen = generated_rows(dev)
     print(f"kernel inputs: {a_rows.shape[0]} main-path walk rows "
           f"(int32 arange, out_len {n}); {h_rows.shape[0]} host-encoder rows "
           f"({nvalid} valid, {h_rows.shape[0] - nvalid} corrupted); "
-          f"{c_rows.shape[0]} clevel-9 host-chunk rows (out_len {cn})")
+          f"{c_rows.shape[0]} clevel-9 host-chunk rows (out_len {cn}); "
+          f"{sum(g[0].shape[0] for g in gen)} generated raw-stream rows "
+          f"(out_len {', '.join(str(g[2]) for g in gen)})")
     maxrec = structured.max_records(n)
     E = structured.record_slots(maxrec)
 
     # K2 walk
     err = 0
-    for rows, cs, ol in ((a_rows, a_cs, n), (h_rows, h_cs, hn)):
-        k = structured.walk(rows, cs, ol, maxrec)
-        p = structured._walk_plain(rows, cs, ol, E)
+    for rows, cs, ol in ((a_rows, a_cs, n), (h_rows, h_cs, hn), *gen):
+        mr = structured.max_records(ol)
+        k = structured.walk(rows, cs, ol, mr)
+        p = structured._walk_plain(rows, cs, ol, structured.record_slots(mr))
         err = max(err, _maxdiff(k[0] + k[1:], p[0] + p[1:]))
     check(err == 0, f"walk kernel differs from its plain version ({err})")
     rf, dist, uni, ok = structured.walk(a_rows, a_cs, n, maxrec)
@@ -216,12 +258,46 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
     nrec = int((rf[0] >= 0).sum())
     N = a_rows.shape[0]
     csum = int(a_cs.sum())
+    walk_call = lambda: structured.walk(a_rows, a_cs, n, maxrec)  # noqa: E731
+    # bound: the rows read and the valid records written (bound_ms), or
+    # every record slot, since the kernel writes the -1/zero tail too
     out["walk"] = dict(
         max_abs_err=err,
-        ms=_ms(dev, lambda: structured.walk(a_rows, a_cs, n, maxrec), reps),
+        ms=_ms(dev, walk_call, reps),
+        device_ms=_device_ms(dev, walk_call, "::walk"),
+        call_ms=_ms(dev, walk_call, reps, batch=BATCH),
         plain_ms=_ms(dev, lambda: structured._walk_plain(a_rows, a_cs, n, E),
                      1),
-        bound_ms=(csum + 4 * N + 16 * nrec + 9 * N) / HBM_BYTES_PER_S * 1e3)
+        bound_ms=(csum + 4 * N + 16 * nrec + 9 * N) / HBM_BYTES_PER_S * 1e3,
+        bound_slots_ms=(csum + 4 * N + 16 * N * E + 9 * N)
+        / HBM_BYTES_PER_S * 1e3)
+    # the walk's other main-path shape: the clevel-9 row at its default
+    # budget, which it overflows (the byte API then decodes it with K3).
+    # Bound: the stream up to the end of the last literal it emitted (less
+    # than it reads) and the records it emitted.
+    cmr = structured.max_records(cn)
+    long_call = lambda: structured.walk(c_rows, c_cs, cn, cmr)  # noqa: E731
+    plain = {}
+
+    def long_plain():       # one timed call (a serial 256 KB walk is slow)
+        plain["out"] = structured._walk_plain(c_rows, c_cs, cn,
+                                              structured.record_slots(cmr))
+
+    long_plain_ms = _ms(dev, long_plain, 1, warmup=0)
+    k, p = long_call(), plain["out"]
+    err = _maxdiff(k[0] + k[1:], p[0] + p[1:])
+    check(err == 0, f"walk kernel differs from its plain version ({err})")
+    (lkind, larg, _, llen), _, _, lok = k
+    check(not bool(lok.any()),
+          "the clevel-9 row must overflow the default walk budget")
+    lread = int(torch.where(lkind == 0, larg + llen, 0).amax(dim=1).sum())
+    Nc = c_rows.shape[0]
+    out["walk"].update(
+        long_ms=_ms(dev, long_call, reps),
+        long_device_ms=_device_ms(dev, long_call, "::walk"),
+        long_plain_ms=long_plain_ms,
+        long_bound_ms=(lread + 4 * Nc + 16 * int((lkind >= 0).sum()) + 9 * Nc)
+        / HBM_BYTES_PER_S * 1e3)
 
     # K1 expand: main-path records and host-encoder (mixed distances)
     hrf = structured.walk(h_rows, h_cs, hn, maxrec)[0]
@@ -230,9 +306,12 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
         err = max(err, _maxdiff([expand.expand(rows, rfx, ol)],
                                 [expand._expand_plain(rows, rfx, ol)]))
     check(err == 0, f"expand kernel differs from its plain version ({err})")
+    expand_call = lambda: expand.expand(a_rows, rf, n)  # noqa: E731
     out["expand"] = dict(
         max_abs_err=err,
-        ms=_ms(dev, lambda: expand.expand(a_rows, rf, n), reps),
+        ms=_ms(dev, expand_call, reps),
+        device_ms=_device_ms(dev, expand_call, "::expand_kernel"),
+        call_ms=_ms(dev, expand_call, reps, batch=BATCH),
         plain_ms=_ms(dev, lambda: expand._expand_plain(a_rows, rf, n),
                      1),
         bound_ms=(csum + 16 * nrec + N * n) / HBM_BYTES_PER_S * 1e3)
@@ -244,6 +323,9 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
     err = _maxdiff(k, p)
     check(not bool(k[2][:nvalid].any()), "valid host streams must decode")
     check(bool(k[2][nvalid:].any()), "some corrupted streams must report err")
+    for rows, cs, ol in gen:
+        err = max(err, _maxdiff(codec.decode(rows, cs, ol),
+                                codec._decode_plain(rows, cs, ol)))
     k = codec.decode(c_rows, c_cs, cn)
     plain = {}
 
@@ -254,17 +336,36 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
     err = max(err, _maxdiff(k, plain["out"]))
     check(err == 0, f"decode kernel differs from its plain version ({err})")
     check(not bool(k[2].any()), "host-chunk rows must decode")
-    Nc = c_rows.shape[0]
+    decode_call = lambda: codec.decode(c_rows, c_cs, cn)  # noqa: E731
     out["decode_one"] = dict(
         max_abs_err=err,
-        ms=_ms(dev, lambda: codec.decode(c_rows, c_cs, cn), reps),
+        ms=_ms(dev, decode_call, reps),
+        device_ms=_device_ms(dev, decode_call, "::decode_kernel"),
+        call_ms=_ms(dev, decode_call, reps, batch=BATCH),
         plain_ms=plain_ms,
         bound_ms=(int(c_cs.sum()) + 4 * Nc + Nc * cn + 5 * Nc)
         / HBM_BYTES_PER_S * 1e3)
+    # tokens of the timed rows: the walk's records at a budget every
+    # stream fits
+    hrf, _, _, hok = structured.walk(c_rows, c_cs, cn,
+                                     structured.high_records(cn))
+    check(bool(hok.all()), "the host-chunk rows must walk at the high budget")
+    ntok = int((hrf[0] >= 0).sum())
+    d = out["decode_one"]
+    print(f"decode_one timed rows: {ntok} tokens in {int(c_cs.sum())} stream "
+          f"bytes; {d['ms'] * 1e6 / ntok:.1f} ns per token per call alone, "
+          f"{d['device_ms'] * 1e6 / ntok:.1f} on the card")
     for name, r in out.items():
         print(f"kernel {name}: equal to plain (max_abs_err {r['max_abs_err']}); "
-              f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms; "
-              f"bound {r['bound_ms']:.6f} ms")
+              f"{r['ms']:.4f} ms per call alone (CUDA events); "
+              f"{r['device_ms']:.4f} ms on the card (profiler, per launch); "
+              f"{r['call_ms']:.4f} ms per call ({BATCH} back to back); plain "
+              f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.6f} ms")
+    w = out["walk"]
+    print(f"kernel walk on the {cn >> 10} KB clevel-9 row (budget {cmr}): "
+          f"{w['long_ms']:.4f} ms per call alone; {w['long_device_ms']:.4f} "
+          f"ms on the card; plain {w['long_plain_ms']:.4f} ms; bound "
+          f"{w['long_bound_ms']:.6f} ms")
     return out
 
 
@@ -317,6 +418,9 @@ def phase_byte_api(dev, chunk_bytes, low, host_chunk):
     if dev.type == "cuda":
         for name, c in counts.items():
             check(c > 0, f"kernel {name} was not launched on the main path")
+    warm = _ms(dev, lambda: tb.decompress_ctx(host_chunk, device=dev), 5)
+    print(f"byte api host-engine clevel-9 chunk decode, warm: {warm:.4f} ms "
+          f"(median of 5, {'CUDA events' if dev.type == 'cuda' else 'host clock'})")
     return counts
 
 
@@ -408,10 +512,7 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": counts[name],
-         "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
-         "plain_ms": stats[name]["plain_ms"],
-         "bound_ms": stats[name]["bound_ms"], "bound_by": "bytes",
-         "library_ms": None}
+         **stats[name], "bound_by": "bytes", "library_ms": None}
         for name in ("expand", "walk", "decode_one")]}
     print(json.dumps(line))
 

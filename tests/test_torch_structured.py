@@ -10,6 +10,7 @@ import jax.numpy as jnp
 
 from cblosc_tpu.tpu import codec as jc, structured as js
 from cblosc_tpu_torch.gpu import structured as ts
+from cblosc_tpu_torch.utils import streams
 from test_torch_common import corrupt, cuda, host_streams, jax_walk, pack_rows, stream_rows  # noqa: F401
 
 
@@ -198,3 +199,35 @@ def test_walk_kernel_matches_plain_on_card(rng, cuda):
     ref = ts.decode(torch.from_numpy(buf), torch.from_numpy(cs), n)
     for x, y in zip(out, ref):
         assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("seed,n,W", streams.CASES)
+def test_walk_matches_jax_on_generated_streams(seed, n, W):
+    """The rows the JAX walk accepts among the generated streams (far
+    matches, escape runs, 32-byte literals ending at csize, narrow and
+    unaligned rows): records, dist and uni equal."""
+    buf, cs, nvalid = streams.generated_rows(seed, n, W)
+    want, dist, uni, ok = jax_walk(buf, cs, n)
+    rf, pdist, puni, pok = ts.walk(torch.from_numpy(buf),
+                                   torch.from_numpy(cs), n, ts.max_records(n))
+    pok = pok.numpy()
+    assert ok.sum() >= 4 and pok[ok].all()
+    assert not pok[nvalid:nvalid + 2].any()          # escape runs cut short
+    for w, g in zip(want, rf):
+        assert np.array_equal(w[ok], g.numpy()[ok])
+    assert np.array_equal(dist[ok], pdist.numpy()[ok])
+    assert np.array_equal(uni[ok], puni.numpy()[ok])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n,W", streams.CARD_CASES)
+def test_walk_kernel_matches_plain_on_generated_streams(seed, n, W, cuda):
+    """The warp-per-row walk on the generated rows, at the default and at
+    the high record budget (every column, the -1 tail included)."""
+    buf, cs, _ = streams.generated_rows(seed, n, W)
+    b, c = torch.from_numpy(buf).to(cuda), torch.from_numpy(cs).to(cuda)
+    for mr in (ts.max_records(n), ts.high_records(n)):
+        k = ts.walk(b, c, n, mr)
+        p = ts._walk_plain(b, c, n, ts.record_slots(mr))
+        for x, y in zip(k[0] + k[1:], p[0] + p[1:]):
+            assert torch.equal(x, y)
