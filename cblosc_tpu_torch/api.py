@@ -9,7 +9,10 @@ full block), as the JAX package's ``backend="tpu"`` path does.
 ``compress`` returns b"" when the data is incompressible and does not
 fit ``destsize`` (the reference's return-0 contract, blosc.h:167-169).
 
-Not ported yet: codecs other than blosclz, compress at clevel >= 5
+Codecs: blosclz, lz4 and lz4hc compress and decompress on the device;
+snappy chunks compress on the host engine and decompress on the device.
+
+Not ported yet: the zlib and zstd codecs, compress at clevel >= 5
 (adaptive-distance mining), getitem, global state, BLOSC_* environment
 overrides and threads.
 """
@@ -52,7 +55,7 @@ def compress_ctx(
     code = C.COMPCODES.get(compressor)
     if code is None:
         raise ValueError(f"unknown compressor '{compressor}'")
-    if code != C.BLOSCLZ:
+    if code in (C.ZLIB, C.ZSTD):
         raise NotImplementedError(
             f"codec '{compressor}' is not ported to the PyTorch package yet")
     ctx = engine.build_context(

@@ -5,8 +5,9 @@ engine runs what the device path hands to the host, exactly where the
 JAX package's device bridge does: the leftover block (different
 geometry, blosc.c:627-633), buffers with no full block, memcpyed chunks
 (clevel 0 or tiny buffers), and chunk decoding when the device path
-declines. It is the numpy oracle for blosclz (ops/codecs/blosclz.py);
-the other codecs are not ported yet and raise NotImplementedError.
+declines. Its codecs are the numpy oracles of blosclz, LZ4/LZ4HC and
+snappy (ops/codecs/); zlib and zstd are not ported yet and raise
+NotImplementedError.
 
 A frozen `CompressionContext` carries all per-job state; blocks are laid
 out in block order (deterministic, like the device's exclusive scan).
@@ -22,7 +23,7 @@ import numpy as np
 from ..format import constants as C
 from ..format.header import ChunkHeader, FormatError, make_flags, read_bstarts, validate_header
 from ..ops import filters_np
-from ..ops.codecs import blosclz
+from ..ops.codecs import blosclz, lz4, snappy
 from . import policy
 
 
@@ -48,17 +49,29 @@ class CompressionContext:
 
 
 def _codec(compcode: int):
-    """(compress, decompress) over one split stream. Only blosclz is
-    ported; the other codes exist in the format but not in this package
-    yet."""
+    """(compress, decompress) over one split stream, as the JAX package's
+    codec registry wraps them (models/registry.py). zlib and zstd exist
+    in the format but not in this package yet."""
     if compcode == C.BLOSCLZ:
         return (lambda data, maxout, clevel, split:
                 blosclz.compress(clevel, data, maxout, split),
                 blosclz.decompress)
+    if compcode == C.LZ4:
+        return (lambda data, maxout, clevel, split:
+                lz4.compress(data, maxout, policy.get_accel(C.LZ4, clevel)),
+                lz4.decompress)
+    if compcode == C.LZ4HC:
+        return (lambda data, maxout, clevel, split:
+                lz4.compress_hc(data, maxout, clevel),
+                lz4.decompress)
+    if compcode == C.SNAPPY:
+        return (lambda data, maxout, clevel, split:
+                snappy.compress(data, maxout),
+                snappy.decompress)
     if compcode in C.COMPNAMES:
         raise NotImplementedError(
             f"codec '{C.COMPNAMES[compcode]}' is not ported to the "
-            "PyTorch package yet (blosclz only)")
+            "PyTorch package yet")
     raise ValueError(f"unknown compressor code {compcode}")
 
 
@@ -117,6 +130,12 @@ def build_context(
     )
 
 
+def _snappy_maxout(n: int) -> int:
+    """snappy_max_compressed_length's bound (blosc.c:640-645): a snappy
+    split may exceed neblock."""
+    return 32 + n + n // 6
+
+
 def compress_block(ctx: CompressionContext, src: np.ndarray, j: int) -> bytes | None:
     """Filter + encode one block into its framed byte string
     (role of blosc_c, blosc.c:591-722). Returns None when the block cannot
@@ -135,6 +154,8 @@ def compress_block(ctx: CompressionContext, src: np.ndarray, j: int) -> bytes | 
     out = bytearray()
     for s in range(nsplits):
         maxout = neblock
+        if ctx.compcode == C.SNAPPY:
+            maxout = _snappy_maxout(neblock)
         remaining = budget - len(out) - 4
         if maxout > remaining:
             maxout = remaining

@@ -159,6 +159,13 @@ def nsplits_decode(
     return 1
 
 
+def get_accel(compcode: int, clevel: int) -> int:
+    """LZ4 acceleration from clevel (blosc.c:577-587)."""
+    if compcode == C.LZ4:
+        return 10 - clevel
+    return 1
+
+
 def device_min_bytes_per_iter(clevel: int) -> int:
     """Decode-speed policy for the device encoder's stored-raw rule:
     streams whose estimated decoder iteration count exceeds

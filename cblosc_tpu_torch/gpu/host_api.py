@@ -6,10 +6,18 @@ blosc.c:627-633) runs through the host engine; the result is
 byte-for-byte the chunk the JAX package writes, a conforming chunk
 (README_CHUNK_FORMAT.rst) any reader decodes.
 
-``compress_chunk`` returns None, and the byte API takes the host engine,
-exactly where the JAX bridge does: memcpyed chunks, no full block, or a
-blocksize that is not a multiple of the split count. Nothing goes to
-the host because a card or a kernel is missing.
+``compress_chunk`` and ``decompress_chunk`` return None, and the byte
+API takes the host engine, exactly where the JAX bridge does: memcpyed
+chunks, no full block, a blocksize that is not a multiple of the split
+count, a codec without a device encoder (snappy compresses on the
+host), and LZ4 or snappy chunks whose streams the device walk rejects
+even with the escalated record budget (foreign geometry). One more case
+goes to the host here: LZ4 splits wider than the device encoder's int32
+sort keys allow (about 2 MiB, only with a forced blocksize), which the
+JAX encoder would write corrupt (gpu/pipeline.encoder decides). zlib and
+zstd raise NotImplementedError: the JAX package decodes them on its
+device, this one not yet. Nothing goes to the host because a card or a
+kernel is missing.
 """
 
 from __future__ import annotations
@@ -31,10 +39,6 @@ def compress_chunk(ctx, data: bytes, device: torch.device) -> bytes | None:
 
     if ctx.memcpyed or ctx.nblocks == 0:
         return None
-    if ctx.compcode != C.BLOSCLZ:
-        raise NotImplementedError(
-            f"codec '{C.COMPNAMES[ctx.compcode]}' is not ported to the "
-            "PyTorch package yet (blosclz only)")
     # retune geometry for the device encoder when the caller used the
     # default (CPU L1) heuristic; a forced blocksize is respected
     default_bs = policy.compute_blocksize(
@@ -55,7 +59,8 @@ def compress_chunk(ctx, data: bytes, device: torch.device) -> bytes | None:
     if nfull == 0:
         return None
     nsplits = policy.nsplits_encode(ctx.dont_split, ctx.typesize, False)
-    if ctx.blocksize % nsplits:
+    if (ctx.blocksize % nsplits
+            or pipeline.encoder(ctx.compcode, ctx.blocksize // nsplits) is None):
         return None
 
     src = np.frombuffer(bytes(data), dtype=np.uint8)
@@ -117,6 +122,17 @@ def _fallback_memcpy(ctx, src: np.ndarray) -> bytes:
     return b""
 
 
+def _escalated_budget(neblock: int, compcode: int) -> int:
+    """Retry record budget for token-dense LZ4 and snappy chunks (short
+    matches every few bytes); 0 for blosclz, whose overflow rows decode
+    with the generic decoder (K3)."""
+    from . import structured
+
+    if compcode == C.BLOSCLZ:
+        return 0
+    return structured.high_records(neblock)
+
+
 def _split_table(chunk: np.ndarray, bstarts, nsplits: int):
     """Per-split (offset, csize) tables for the selected blocks, scanned
     vectorized across blocks; bounds mirror blosc_d's validation
@@ -155,10 +171,10 @@ def decompress_chunk(chunk_bytes, destsize: int | None,
         return b""
     if hdr.memcpyed:
         return None
-    if hdr.compcode != C.BLOSCLZ:
+    if hdr.compcode not in pipeline.DEVICE_DECODE_CODECS:     # zlib, zstd
         raise NotImplementedError(
             f"codec '{hdr.compname}' is not ported to the PyTorch package "
-            "yet (blosclz only)")
+            "yet")
     nblocks, leftover = hdr.nblocks, hdr.leftover
     nfull = nblocks - (1 if leftover else 0)
     if nfull == 0:
@@ -186,7 +202,15 @@ def decompress_chunk(chunk_bytes, destsize: int | None,
         rows, cs_dev, neblock, doshuffle, hdr.typesize, nsplits, hdr.compcode,
     )
     if bool(err.any()):
-        raise FormatError("corrupt blosclz stream (device decode)")
+        hi = _escalated_budget(neblock, hdr.compcode)
+        if hi:              # token-dense streams: one widened-budget retry
+            blocks, err = pipeline.decompress_blocks(
+                rows, cs_dev, neblock, doshuffle, hdr.typesize, nsplits,
+                hdr.compcode, hi)
+        if bool(err.any()):
+            if hdr.compcode != C.BLOSCLZ:
+                return None  # foreign geometry: the host engine decodes it
+            raise FormatError("corrupt blosclz stream (device decode)")
     out = blocks.cpu().numpy().reshape(-1)
 
     if leftover:

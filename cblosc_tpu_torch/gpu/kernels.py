@@ -31,18 +31,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> source file
-SOURCES = {"expand": "expand.cu", "walk": "walk.cu", "decode_one": "decode.cu"}
+SOURCES = {"expand": "expand.cu", "walk": "walk.cu", "decode_one": "decode.cu",
+           "lz4_walk": "lz4_walk.cu", "snappy_walk": "snappy_walk.cu"}
 
 LAUNCHES = {name: 0 for name in SOURCES}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures (argtypes) of each entry point; restype is int
+# the three walks share one signature (structured.launch_walk)
+_WALK = [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]
 _SIGS = {
     "expand": ("expand_launch", [_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P]),
-    "walk": ("walk_launch", [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P,
-                             _P, _P]),
+    "walk": ("walk_launch", _WALK),
     "decode_one": ("decode_launch", [_P, _I, _I, _P, _I, _P, _P, _P, _P]),
+    "lz4_walk": ("lz4_walk_launch", _WALK),
+    "snappy_walk": ("snappy_walk_launch", _WALK),
 }
 
 _lock = threading.Lock()

@@ -12,14 +12,16 @@ the reference's block engine hot loop (blosc_c / blosc_d, blosc/blosc.c:
 
 and the serialized layout is an exclusive scan over the csizes
 (deterministic, replacing the reference's arrival-order mutex
-reservation, blosc.c:1843-1861). BloscLZ is the one codec ported.
+reservation, blosc.c:1843-1861). BloscLZ and LZ4/LZ4HC encode and decode
+here; snappy decodes (its chunks are written by the host engine, as in
+the JAX package); zlib and zstd are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import codec, filters, structured
+from . import codec, codec_lz4, codec_snappy, filters, structured
 from ..format import constants as C
 
 I32 = torch.int32
@@ -30,23 +32,49 @@ U8 = torch.uint8
 # on that grouping, so the port keeps it for byte parity.
 _ENCODE_GROUP_BYTES = 64 << 20
 
+# compcodes with a device encoder (LZ4HC chunks carry the LZ4 wire format)
+DEVICE_CODECS = (C.BLOSCLZ, C.LZ4, C.LZ4HC)
+# and with a device decoder: snappy chunks, written by the host engine,
+# decode on the device too
+DEVICE_DECODE_CODECS = DEVICE_CODECS + (C.SNAPPY,)
 
-def _require_blosclz(compcode: int) -> None:
-    if compcode != C.BLOSCLZ:
-        raise NotImplementedError(
-            f"compcode {compcode}: only blosclz is ported to the device "
-            "pipeline")
+
+def encoder(compcode: int, neblock: int):
+    """The device encoder module for splits of neblock bytes, or None
+    where the host engine encodes: the codecs outside DEVICE_CODECS, as
+    in the JAX package, and LZ4 splits too wide for its int32 sort keys
+    (codec_lz4.fits; only a forced blocksize gives them)."""
+    if compcode not in DEVICE_CODECS:
+        return None
+    if compcode == C.BLOSCLZ:
+        return codec
+    return codec_lz4 if codec_lz4.fits(neblock) else None
 
 
-def _encode_grouped(streams: torch.Tensor, min_cratio_x100: int, mine: bool):
+def _decoder(compcode: int):
+    """decode(slots, csizes, out_len, maxrec_hint) of a compcode."""
+    if compcode == C.BLOSCLZ:
+        # blosclz rows that overflow the walk budget decode with the
+        # generic decoder (K3), so the budget takes no hint
+        return lambda sl, cs, n, hint: structured.decode(sl, cs, n)
+    if compcode in (C.LZ4, C.LZ4HC):
+        return codec_lz4.decode
+    if compcode == C.SNAPPY:
+        return codec_snappy.decode
+    raise NotImplementedError(
+        f"compcode {compcode}: no device decoder in the PyTorch package yet")
+
+
+def _encode_grouped(streams: torch.Tensor, mod, min_cratio_x100: int,
+                    mine: bool):
     rows, n = streams.shape
     group = max(_ENCODE_GROUP_BYTES // max(n, 1), 8)
     if rows <= group:
-        return codec.encode(streams, codec.DISTANCES, min_cratio_x100, mine)
+        return mod.encode(streams, codec.DISTANCES, min_cratio_x100, mine)
     pad = (-rows) % group
     sp = torch.nn.functional.pad(streams, (0, 0, 0, pad))
-    parts = [codec.encode(sp[i:i + group], codec.DISTANCES, min_cratio_x100,
-                          mine) for i in range(0, sp.shape[0], group)]
+    parts = [mod.encode(sp[i:i + group], codec.DISTANCES, min_cratio_x100,
+                        mine) for i in range(0, sp.shape[0], group)]
     return tuple(torch.cat([p[k] for p in parts])[:rows] for k in range(3))
 
 
@@ -62,16 +90,20 @@ def compress_blocks(
     csize == neblock marks a stored-raw split (blosc.c:705-714) whose
     slot holds the filtered bytes verbatim. Streams whose estimated
     decoder iterations exceed neblock / min_bytes_per_iter are stored
-    raw too (0 disables that speed policy)."""
-    _require_blosclz(compcode)
+    raw too (0 disables that speed policy). compcode picks the encoder
+    (:func:`encoder`); where it has none, this raises ValueError."""
     nblocks, blocksize = blocks.shape
     neblock = blocksize // nsplits
+    mod = encoder(compcode, neblock)
+    if mod is None:
+        raise ValueError(f"no device encoder for compcode {compcode} at "
+                         f"{neblock}-byte splits")
 
     def one_batch(blk):
         filtered = filters.apply_filter(doshuffle, typesize, blk)
         streams = filtered.reshape(blk.shape[0] * nsplits, neblock)
-        slots, csizes, est_iters = _encode_grouped(streams, min_cratio_x100,
-                                                   mine)
+        slots, csizes, est_iters = _encode_grouped(streams, mod,
+                                                   min_cratio_x100, mine)
         raw = csizes >= neblock
         if min_bytes_per_iter:
             raw |= est_iters > max(neblock // min_bytes_per_iter, 32)
@@ -99,25 +131,33 @@ def decompress_blocks(
     typesize: int,
     nsplits: int,
     compcode: int = C.BLOSCLZ,
+    maxrec_hint: int = 0,
 ):
     """Decode + unfilter full blocks on the device.
 
-    slots: uint8 (nblocks*nsplits, W >= neblock), each row a blosclz
-    stream (or raw bytes when csize >= neblock), zero past its csize.
+    slots: uint8 (nblocks*nsplits, W >= neblock), each row a stream of
+    the compcode's codec (or raw bytes, see below), zero past its csize.
     Returns (blocks uint8 (nblocks, nsplits*neblock), err bool (rows,)).
+    maxrec_hint widens the LZ4/snappy walk budget (the byte API's retry
+    for token-dense chunks). zlib and zstd raise NotImplementedError.
     """
-    _require_blosclz(compcode)
+    dec = _decoder(compcode)
     rows = slots.shape[0]
     blocksize = neblock * nsplits
-    # stored-raw rule: csize == neblock marks a raw split (blosc.c:705-714)
-    raw = csizes >= neblock
+    # stored-raw rule: csize == neblock marks a raw split (blosc.c:705-714);
+    # a compressed snappy split may exceed neblock (its maxout is
+    # 32 + n + n/6, blosc.c:640-645), so only equality marks it raw
+    if compcode == C.SNAPPY:
+        raw = csizes == neblock
+    else:
+        raw = csizes >= neblock
     dec_cs = torch.where(raw, 0, csizes).to(I32)
     # decode in 64 MB block groups to bound the workspace
     group = max(_ENCODE_GROUP_BYTES // max(blocksize, 1), 1) * nsplits
     outs, errs = [], []
     for i in range(0, rows, group):
         sl, cs, rw = slots[i:i + group], dec_cs[i:i + group], raw[i:i + group]
-        decoded, produced, err = structured.decode(sl, cs, neblock)
+        decoded, produced, err = dec(sl, cs, neblock, maxrec_hint)
         streams = torch.where(rw[:, None], sl[:, :neblock], decoded)
         errs.append(torch.where(rw, False, err | (produced != neblock)))
         blk = streams.reshape(sl.shape[0] // nsplits, blocksize)
@@ -129,9 +169,11 @@ def decompress_blocks(
 
 
 def decode_slot_width(neblock: int, compcode: int = C.BLOSCLZ) -> int:
-    """Gather width covering any conforming blosclz split stream (its
-    maxout is neblock; bigger is stored raw)."""
-    _require_blosclz(compcode)
+    """Gather width covering any conforming split stream: blosclz and LZ4
+    splits never exceed neblock (their maxout is neblock; bigger is
+    stored raw), a compressed snappy split may reach 32 + n + n/6."""
+    if compcode == C.SNAPPY:
+        return neblock + neblock // 6 + 64
     return neblock + 64
 
 

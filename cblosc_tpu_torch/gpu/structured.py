@@ -76,6 +76,14 @@ def walk(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
     E = record_slots(maxrec)
     if not slots.is_cuda:
         return _walk_plain(slots, csizes, out_len, E)
+    return launch_walk("walk", slots, csizes, out_len, E)
+
+
+def launch_walk(name: str, slots: torch.Tensor, csizes: torch.Tensor,
+                out_len: int, E: int):
+    """Launch the walk kernel `name` (walk, lz4_walk, snappy_walk: one C
+    signature) on CUDA tensors; returns walk()'s outputs with E record
+    columns."""
     kernels.require(slots, "slots", U8, 2)
     kernels.require(csizes, "csizes", I32, 1)
     N, W = slots.shape
@@ -86,13 +94,36 @@ def walk(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
     kind, arg, dst, ln = torch.empty((4, N, E), dtype=I32, device=dev).unbind(0)
     dist = torch.empty(N, dtype=I32, device=dev)
     uni, ok = torch.empty((2, N), dtype=torch.bool, device=dev).unbind(0)
-    code = kernels.fn("walk")(
+    code = kernels.fn(name)(
         slots.data_ptr(), N, W, csizes.data_ptr(), out_len, E,
         kind.data_ptr(), arg.data_ptr(), dst.data_ptr(), ln.data_ptr(),
         dist.data_ptr(), uni.data_ptr(), ok.data_ptr(),
         kernels.stream_ptr(slots))
-    kernels.check("walk", code)
+    kernels.check(name, code)
     return (kind, arg, dst, ln), dist, uni, ok
+
+
+def byte_reader(slots: torch.Tensor, cs: torch.Tensor):
+    """byte(rows, x): the bytes at positions x (any shape, leading dim
+    rows) of the given rows, 0 at or past the row's csize or width (the
+    walks' masked window reads)."""
+    W = slots.shape[1]
+
+    def byte(rows, x):
+        r = rows.view(-1, *([1] * (x.dim() - 1)))
+        c = cs[rows].view(-1, *([1] * (x.dim() - 1)))
+        v = slots[r, torch.clamp(x, 0, W - 1)].to(I64)
+        return torch.where((x >= 0) & (x < c) & (x < W), v, 0)
+
+    return byte
+
+
+def empty_records(N: int, E: int, dev):
+    """Record columns of a plain walk: kind -1, the rest 0."""
+    kind = torch.full((N, E), -1, dtype=I32, device=dev)
+    arg, dst, ln = (torch.zeros((N, E), dtype=I32, device=dev)
+                    for _ in range(3))
+    return kind, arg, dst, ln
 
 
 def _walk_plain(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
@@ -100,23 +131,16 @@ def _walk_plain(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
     """The walk kernel's function in plain PyTorch: every live row
     advances one token per step, with the kernel's state machine (see
     csrc/walk.cu)."""
-    N, W = slots.shape
+    N = slots.shape[0]
     dev = slots.device
     cs = csizes.to(I64)
-    kind = torch.full((N, E), -1, dtype=I32, device=dev)
-    arg, dst, ln = (torch.zeros((N, E), dtype=I32, device=dev)
-                    for _ in range(3))
+    kind, arg, dst, ln = empty_records(N, E, dev)
     zero = torch.zeros(N, dtype=I64, device=dev)
     ip, op, extacc, dist, cnt = zero + 1, zero.clone(), zero.clone(), \
         zero.clone(), zero.clone()
     uni = torch.ones(N, dtype=torch.bool, device=dev)
     err, fin = cs <= 0, cs <= 1
-
-    def byte(rows, x):
-        r = rows.view(-1, *([1] * (x.dim() - 1)))
-        c = cs[rows].view(-1, *([1] * (x.dim() - 1)))
-        v = slots[r, torch.clamp(x, 0, W - 1)].to(I64)
-        return torch.where((x >= 0) & (x < c) & (x < W), v, 0)
+    byte = byte_reader(slots, cs)
 
     def record(r, k, a, d, l):
         c = cnt[r]
@@ -411,12 +435,14 @@ def kernel_place_rows(sl: torch.Tensor, rf, out_len: int, W: int):
     return expand_mod.expand(sl[:, :W].contiguous(), rf, out_len)
 
 
-def decode_core(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
-                maxrec: int):
-    """Walk + place one batch of live rows. Returns (out uint8
-    (N, out_len), handled bool (N,)); rows not handled are don't-care."""
+def decode_core(walk_fn, slots: torch.Tensor, csizes: torch.Tensor,
+                out_len: int, maxrec: int):
+    """Walk + place one batch of live rows, for any of the three walk
+    grammars (walk_fn: this module's walk, codec_lz4.walk or
+    codec_snappy.walk). Returns (out uint8 (N, out_len), handled bool
+    (N,)); rows not handled are don't-care."""
     N, W = slots.shape
-    rf, dist, uni, ok = walk(slots, csizes, out_len, maxrec)
+    rf, dist, uni, ok = walk_fn(slots, csizes, out_len, maxrec)
     live = ok & (csizes > 0)
     valid = rf[0] >= 0
     elig = pure_tile_eligible(rf, valid, dist, uni, ok, csizes,
@@ -433,6 +459,25 @@ def decode_core(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
         out[k] = kernel_place_rows(slots[k], tuple(f[k] for f in rf),
                                    out_len, W)
     return out, live
+
+
+def decode_walked(walk_fn, default_records, slots: torch.Tensor,
+                  csizes: torch.Tensor, out_len: int, maxrec_hint: int = 0):
+    """Decode of a codec whose every live row takes its walk (LZ4 and
+    snappy have no template path): (out, produced, err) as the JAX
+    decoders return them. Rows the walk cannot handle report err (the
+    byte API retries with a wider budget, then decodes the chunk on the
+    host); so do all live rows of a geometry outside decode_cap.
+    maxrec_hint overrides the budget default_records(out_len)."""
+    N = slots.shape[0]
+    dev = slots.device
+    if out_len > decode_cap() or out_len < 8:
+        return (torch.zeros((N, out_len), dtype=U8, device=dev),
+                torch.zeros(N, dtype=I32, device=dev), csizes > 0)
+    maxrec = maxrec_hint or default_records(out_len)
+    sk, handled = decode_core(walk_fn, slots, csizes, out_len, maxrec)
+    produced = torch.where(handled, out_len, 0).to(I32)
+    return sk, produced, ~handled & (csizes > 0)
 
 
 def decode(slots: torch.Tensor, csizes: torch.Tensor, out_len: int):
@@ -456,8 +501,8 @@ def decode(slots: torch.Tensor, csizes: torch.Tensor, out_len: int):
             handled = tmatch.clone()
     rest = torch.nonzero(~handled & (csizes > 0)).flatten()
     if rest.numel():
-        sk_w, handled_w = decode_core(slots[rest], csizes[rest], out_len,
-                                      maxrec)
+        sk_w, handled_w = decode_core(walk, slots[rest], csizes[rest],
+                                      out_len, maxrec)
         h = rest[handled_w]
         sk[h] = sk_w[handled_w]
         handled[h] = True

@@ -6,7 +6,8 @@ Run on a machine with an NVIDIA GPU, from the repository root:
 
 For the bench geometry (clevel 1, 4 MB chunks, shuffle) on two data
 sets (``synth`` sbits 19 typesize 8, the bench data; int32 arange
-typesize 4, whose decode runs the walk and expand kernels) it profiles
+typesize 4, whose decode runs the walk and expand kernels) with blosclz,
+and on ``synth`` with LZ4 (whose decode runs the LZ4 walk), it profiles
 one steady call each of ``gpu.pipeline.compress_blocks`` and
 ``decompress_blocks``; then one steady byte-API ``decompress_ctx`` of a
 clevel-9 chunk the host engine writes (256 KB of low-entropy bytes, the
@@ -46,7 +47,10 @@ def _device_us(evt) -> float:
 def kernel_ms(fn, kernel: str, calls: int = 20) -> float:
     """Mean device milliseconds per launch of the kernels whose name
     contains `kernel`, over `calls` calls of fn: the card's own time for
-    the kernel, without the host work of the call around it."""
+    the kernel, without the host work of the call around it. Raises,
+    naming the kernels the trace holds, when it holds no such launch."""
+    from torch.autograd import DeviceType
+
     fn()                                           # warm up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -54,14 +58,13 @@ def kernel_ms(fn, kernel: str, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    from torch.autograd import DeviceType
-
-    hits = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA
-            and kernel in e.key]
+    evts = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    hits = [e for e in evts if kernel in e.key]
     n = sum(e.count for e in hits)
     if n == 0:
-        raise RuntimeError(f"no launch of a kernel named *{kernel}* was traced")
+        raise RuntimeError(f"no launch of a kernel named *{kernel}* was "
+                           f"traced; traced: {sorted({e.key[:60] for e in evts})}")
     return sum(_device_us(e) for e in hits) / n / 1e3
 
 
@@ -103,10 +106,12 @@ def main() -> None:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     ws = args.workset_mb << 20
     dev = torch.device("cuda")
-    for name, data, ts in (
-            ("synth sbits19 ts8", synth(ws, 8, 19), 8),
+    sy = synth(ws, 8, 19)
+    for name, data, ts, code in (
+            ("synth sbits19 ts8", sy, 8, C.BLOSCLZ),
             ("int32 arange ts4",
-             np.arange(ws // 4, dtype=np.int32).view(np.uint8), 4)):
+             np.arange(ws // 4, dtype=np.int32).view(np.uint8), 4, C.BLOSCLZ),
+            ("lz4 synth sbits19 ts8", sy, 8, C.LZ4)):
         bs = policy.compute_blocksize_device(1, ts, 4 << 20)
         nsplits = ts
         neblock = bs // nsplits
@@ -115,14 +120,14 @@ def main() -> None:
         def comp():
             return pipeline.compress_blocks(
                 x, C.SHUFFLE, ts, nsplits, policy.device_min_bytes_per_iter(1),
-                C.BLOSCLZ, policy.device_min_cratio_x100(1), False)
+                code, policy.device_min_cratio_x100(1), False)
 
         slots, cs = comp()
         rows = pipeline.mask_past_csize(slots, cs, slots.shape[1])
 
         def dec():
             return pipeline.decompress_blocks(rows, cs, neblock, C.SHUFFLE,
-                                              ts, nsplits)
+                                              ts, nsplits, code)
 
         for label, fn in (("compress_blocks", comp),
                           ("decompress_blocks", dec)):

@@ -8,28 +8,42 @@ Run from the repository root on a machine with an NVIDIA GPU:
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card's name and power limit; build the CUDA kernels from
      cblosc_tpu_torch/csrc (in parallel, into build/torch_kernels/);
-  2. each kernel against its plain PyTorch version on the same CUDA
-     tensors, outputs equal (tolerance 0: integer code): the main path's
-     inputs, host-encoder rows and raw streams generated token by token
-     (far matches, escape runs, narrow and unaligned rows, corruptions,
-     random bytes). Times: each kernel's wrapper called alone between
-     CUDA events (the "ms" of the kernels line, which includes the host
-     work of a short call), beside the kernel's device time per launch
-     (torch.profiler, "device_ms") and the wrapper's time per call of 20
-     back to back ("call_ms"); the walk on both its main-path shapes
-     (the long row's figures as "long_*"); the token count and ns per
-     token of the timed 256 KB decode row;
+  2. each kernel on CUDA tensors against its plain PyTorch version on
+     the same inputs, outputs equal (tolerance 0: integer code); the
+     plain versions of the four serial parsers (walk, decode_one,
+     lz4_walk, snappy_walk) run on a host copy ("plain_on": "host"),
+     expand's on the card. Inputs: the main path's, host-encoder rows
+     and raw streams generated token by token (far matches, escape
+     runs, narrow and unaligned rows, corruptions, random bytes).
+     Times: each kernel's wrapper called alone between CUDA events (the
+     "ms" of the kernels line, which includes the host work of a short
+     call), beside the kernel's device time per launch ("device_ms",
+     from torch.profiler; "device_ms_source" says when a trace held no
+     launch and queued CUDA events stood in) and the wrapper's time per
+     call of 20 back to back ("call_ms"); the walk on both its main-path
+     shapes (the long row's figures as "long_*"); the token count and ns
+     per token of the timed 256 KB decode row. The LZ4 walk (lz4_walk)
+     and the snappy walk (snappy_walk) are held on their main-path rows
+     (a 4 MB LZ4 chunk from the device encoder; the rows of a 4 MB
+     snappy chunk from the host engine) and timed there, the LZ4 walk
+     also on one generated 128 KB row ("long_*"); they are held besides
+     on host-engine rows (LZ4 at clevel 5 and 9, LZ4HC), generated
+     streams with corruptions, and a token-dense row at the default and
+     the escalated budget;
   3. the main path: byte-API round trips (compress_ctx/decompress_ctx)
-     on 4 MB buffers at clevel 1 plus a clevel-9 host-engine chunk
-     decoded on the card; every launch counter is zeroed just before
-     and read just after, and each kernel must have launched; then the
+     on 4 MB buffers at clevel 1 (blosclz, lz4, lz4hc) plus a clevel-9
+     blosclz, a clevel-5 LZ4 and a snappy chunk from the host engine
+     decoded on the card (gpu.host_api.decompress_chunk must return
+     them: no host fallback); every launch counter is zeroed just before
+     each decode and read just after it, the phase's launches are their
+     sum, and each kernel must have launched; then the
      clevel-9 chunk's decode is timed warm (CUDA events, median of 5);
   4. the bench geometry on device-resident data: a 128 MB working set
      through gpu.pipeline.compress_blocks -> mask_past_csize ->
      decompress_blocks, verified equal, timed with CUDA events (call
      time on the stream, host syncs included), with the launch counts
      of its first decode (the int32 arange decode must launch the walk
-     and expand kernels);
+     and expand kernels, the LZ4 synth decode the LZ4 walk);
   5. the kernels line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package, and exits
@@ -84,25 +98,77 @@ def _ms(dev, fn, reps, warmup=1, batch=1):
     return (time.perf_counter() - t0) * 1e3 / reps / batch
 
 
-def _device_ms(dev, fn, kernel: str) -> float:
-    """Device ms per launch of `kernel` (torch.profiler); NaN in a CPU
+def _device_ms(dev, fn, kernel: str):
+    """(ms, source): the device ms per launch of `kernel` from
+    torch.profiler (source "profiler"). Where the trace holds no launch
+    at all (seen in long runs of this script, cause unknown), the card's
+    ms per call of fn, 20 calls queued behind a spin kernel so that they
+    run back to back, between CUDA events (source "queued events": the
+    call's other kernels included), and a line says so. NaN in a CPU
     rehearsal, which has no device time."""
     if dev.type != "cuda":
-        return float("nan")
+        return float("nan"), "none"
     from cblosc_tpu_torch.utils.profile import kernel_ms
 
-    return kernel_ms(fn, kernel)
+    try:
+        return kernel_ms(fn, kernel), "profiler"
+    except RuntimeError as e:
+        calls = 20
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)     # tens of ms: the calls queue up
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / calls
+        print(f"device time of {kernel}: {e}; took {ms:.4f} ms per call from "
+              f"{calls} calls queued behind a spin kernel (CUDA events)")
+        return ms, "queued events"
+
+
+def _device_label(source: str) -> str:
+    return {"profiler": "profiler, per launch",
+            "queued events": "queued CUDA events, per call"}.get(source, source)
+
+
+def _host_plain(plain_fn, *args):
+    """(outputs, ms): plain_fn on a host copy of its tensor arguments,
+    one call timed on the host clock. The plain versions of the serial
+    machines (walk, decode_one, lz4_walk, snappy_walk) take one parse
+    step per iteration, and every op of a step is a launch on the card
+    (about 3 ms a step there, several times less on the host), so they
+    run on the host; the plain expand, one vectorized pass, runs on the
+    card."""
+    cargs = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    t0 = time.perf_counter()
+    out = plain_fn(*cargs)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def print_kernel(name: str, r: dict) -> None:
+    print(f"kernel {name}: equal to plain (max_abs_err {r['max_abs_err']}); "
+          f"{r['ms']:.4f} ms per call alone (CUDA events); "
+          f"{r['device_ms']:.4f} ms on the card "
+          f"({_device_label(r['device_ms_source'])}); "
+          f"{r['call_ms']:.4f} ms per call ({BATCH} back to back); plain "
+          f"{r['plain_ms']:.4f} ms (on the {r['plain_on']}); bound "
+          f"{r['bound_ms']:.6f} ms")
 
 
 def _maxdiff(a, b) -> int:
+    """Largest absolute difference over paired outputs, on the host."""
     a, b = tuple(a), tuple(b)
     check(len(a) == len(b), "output arity differs")
     worst = 0
     for x, y in zip(a, b):
         check(x.shape == y.shape, f"shape {tuple(x.shape)} vs {tuple(y.shape)}")
         if x.numel():
-            worst = max(worst, int((x.to(torch.int64)
-                                    - y.to(torch.int64)).abs().max()))
+            worst = max(worst, int((x.cpu().to(torch.int64)
+                                    - y.cpu().to(torch.int64)).abs().max()))
     return worst
 
 
@@ -203,7 +269,7 @@ def chunk_rows(dev, chunk):
     offs, cs = host_api._split_table(
         np.frombuffer(chunk, np.uint8), read_bstarts(chunk, hdr.nblocks)[:nfull],
         nsplits)
-    width = pipeline.decode_slot_width(neblock)
+    width = pipeline.decode_slot_width(neblock, hdr.compcode)
     cs_dev = torch.from_numpy(cs).to(dev)
     rows = pipeline.gather_slots(
         torch.from_numpy(np.frombuffer(chunk, np.uint8).copy()).to(dev),
@@ -227,8 +293,194 @@ def generated_rows(dev):
     return out
 
 
+def lz4_main_rows(dev, chunk_bytes):
+    """The rows the LZ4 walk gets on the main path: the byte API's LZ4
+    chunk of 4 MB synth (sbits 19, typesize 8, shuffle, clevel 1, the
+    device encoder), gathered as it gathers them, stored-raw rows
+    dropped."""
+    import cblosc_tpu_torch as tb
+    from cblosc_tpu_torch.format import constants as C
+    from cblosc_tpu_torch.utils.timing import synth
+
+    chunk = tb.compress_ctx(1, C.SHUFFLE, 8, synth(chunk_bytes, 8, 19).tobytes(),
+                            compressor="lz4", device=dev)
+    rows, cs, neblock = chunk_rows(dev, chunk)
+    return (*live_rows(rows, cs, neblock), neblock)
+
+
+def host_codec_chunk(code, clevel, data, typesize):
+    """A chunk of `data` from the port's host engine (shuffle)."""
+    from cblosc_tpu_torch.core import engine
+    from cblosc_tpu_torch.format import constants as C
+
+    ctx = engine.build_context(clevel, C.SHUFFLE, typesize, len(data),
+                               len(data) + 16, code)
+    return engine.compress_chunk(ctx, data)
+
+
+def live_rows(rows, cs, neblock):
+    """The rows a decoder walks: stored-raw rows (csize == neblock, the
+    only raw rule that holds for every codec) dropped."""
+    keep = torch.nonzero((cs > 0) & (cs != neblock)).flatten()
+    return rows[keep].contiguous(), cs[keep].contiguous()
+
+
+def _walk_entry(dev, walk_fn, plain_fn, kernel, rows, cs, n, maxrec, reps):
+    """One walk kernel on one input, held against its plain version (one
+    timed call), with the yardsticks of the other kernels: bound =
+    (stream bytes + csizes + 16 B per valid record + dist, uni and ok) /
+    HBM rate."""
+    from cblosc_tpu_torch.gpu import structured
+
+    E = structured.record_slots(maxrec)
+    call = lambda: walk_fn(rows, cs, n, maxrec)  # noqa: E731
+    device_ms, source = _device_ms(dev, call, kernel)
+    k = call()
+    p, plain_ms = _host_plain(plain_fn, rows, cs, n, E)
+    N = rows.shape[0]
+    nrec = int((k[0][0] >= 0).sum())
+    return dict(
+        max_abs_err=_maxdiff(k[0] + k[1:], p[0] + p[1:]),
+        ms=_ms(dev, call, reps),
+        device_ms=device_ms, device_ms_source=source,
+        call_ms=_ms(dev, call, reps, batch=BATCH),
+        plain_ms=plain_ms, plain_on="host",
+        bound_ms=(int(cs.sum()) + 4 * N + 16 * nrec + 6 * N)
+        / HBM_BYTES_PER_S * 1e3,
+        rows=N, records=nrec, accepted=int(k[3].sum()))
+
+
+def phase_codec_walks(dev, chunk_bytes, snappy_chunk, reps):
+    """K4 (LZ4 walk) and K5 (snappy walk) against their plain versions on
+    host copies of the same CUDA tensors (_host_plain), at the default
+    and the escalated budget; times on the main-path rows and, for K4,
+    one generated 128 KB row."""
+    from cblosc_tpu_torch.format import constants as C
+    from cblosc_tpu_torch.gpu import codec_lz4, codec_snappy, structured
+    from cblosc_tpu_torch.utils import streams
+    from cblosc_tpu_torch.utils.timing import synth
+
+    rng = np.random.default_rng(13)
+
+    def held(walk_fn, plain_fn, cases, label):
+        """The kernel against its plain version on more inputs."""
+        err = 0
+        t0 = time.perf_counter()
+        for rows, cs, n, mr in cases:
+            k = walk_fn(rows, cs, n, mr)
+            p, _ = _host_plain(plain_fn, rows, cs, n,
+                               structured.record_slots(mr))
+            err = max(err, _maxdiff(k[0] + k[1:], p[0] + p[1:]))
+        check(err == 0, f"{label} kernel differs from its plain version ({err})")
+        print(f"{label}: held on {len(cases)} more inputs "
+              f"({time.perf_counter() - t0:.1f} s)")
+        return err
+
+    def on_dev(buf, cs):
+        return torch.from_numpy(buf).to(dev), torch.from_numpy(cs).to(dev)
+
+    def dense_cases(walk_fn, mr_fn, dense_fn, width_fn, label):
+        dn = 4096
+        stream, _ = dense_fn(rng, dn)
+        rows, cs = on_dev(*_pack_one(stream, width_fn(dn)))
+        out = []
+        for budget, accept in ((mr_fn(dn), False),
+                               (structured.high_records(dn), True)):
+            check(bool(walk_fn(rows, cs, dn, budget)[3][0]) == accept,
+                  f"the token-dense {label} row must overflow the default "
+                  "budget and walk at the escalated one")
+            out.append((rows, cs, dn, budget))
+        return out
+
+    out = {}
+    # ---- K4: host-engine rows (8 KB splits of 64 KB synth; LZ4 at clevel
+    #      5 and 9, LZ4HC), generated streams, a token-dense row ----------
+    host = synth(64 << 10, 8, 19).tobytes()
+    cases = []
+    for code, clevel in ((C.LZ4, 5), (C.LZ4, 9), (C.LZ4HC, 9)):
+        h_rows, h_cs, hn = chunk_rows(dev, host_codec_chunk(code, clevel,
+                                                            host, 8))
+        h_rows, h_cs = live_rows(h_rows, h_cs, hn)
+        cases.append((h_rows, h_cs, hn, codec_lz4.max_records(hn)))
+    for seed, gn, width in streams.LZ4_CARD_CASES[:-1]:
+        buf, cs, _, _ = streams.lz4_rows(seed, gn, width)
+        cases.append((*on_dev(buf, cs), gn, codec_lz4.max_records(gn)))
+    cases += dense_cases(codec_lz4.walk, codec_lz4.max_records,
+                         streams.lz4_dense, lambda n: n + 64, "LZ4")
+    m_rows, m_cs, n = lz4_main_rows(dev, chunk_bytes)
+    out["lz4_walk"] = r = _walk_entry(
+        dev, codec_lz4.walk, codec_lz4._walk_plain, "::lz4_walk", m_rows,
+        m_cs, n, codec_lz4.max_records(n), reps)
+    err = held(codec_lz4.walk, codec_lz4._walk_plain, cases, "lz4_walk")
+    # the long row: the first "far" row of the generated 128 KB case
+    # (offsets up to 65535, 255-runs) at the default budget
+    seed, ln, width = streams.LZ4_CARD_CASES[-1]
+    buf, cs = streams.lz4_rows(seed, ln, width)[:2]
+    far = 2 * streams.LZ4_KINDS.index("far")
+    l_rows, l_cs = on_dev(buf[far:far + 1], cs[far:far + 1])
+    lr = _walk_entry(dev, codec_lz4.walk, codec_lz4._walk_plain,
+                     "::lz4_walk", l_rows, l_cs, ln,
+                     codec_lz4.max_records(ln), reps)
+    r["max_abs_err"] = max(err, r["max_abs_err"], lr["max_abs_err"])
+    check(r["max_abs_err"] == 0, "lz4_walk kernel differs from its plain "
+          f"version ({r['max_abs_err']})")
+    r.update({f"long_{k}": lr[k] for k in ("ms", "device_ms",
+                                           "device_ms_source", "plain_ms",
+                                           "bound_ms", "rows", "records",
+                                           "accepted")})
+    # ---- K5: the main-path rows (also at the escalated budget, the rows
+    #      that overflow the default one), generated streams, a
+    #      token-dense row ----------------------------------------------
+    s_rows, s_cs, sn = chunk_rows(dev, snappy_chunk)
+    s_rows, s_cs = live_rows(s_rows, s_cs, sn)
+    smr = codec_snappy.max_records(sn)
+    out["snappy_walk"] = r = _walk_entry(
+        dev, codec_snappy.walk, codec_snappy._walk_plain, "::snappy_walk",
+        s_rows, s_cs, sn, smr, reps)
+    over = torch.nonzero(~codec_snappy.walk(s_rows, s_cs, sn, smr)[3])
+    over = over.flatten()[:4]
+    cases = [(s_rows[over].contiguous(), s_cs[over].contiguous(), sn,
+              structured.high_records(sn))]
+    for seed, gn, width in streams.SNAPPY_CASES:
+        buf, cs, _, _ = streams.snappy_rows(seed, gn, width)
+        cases.append((*on_dev(buf, cs), gn, codec_snappy.max_records(gn)))
+    cases += dense_cases(codec_snappy.walk, codec_snappy.max_records,
+                         streams.snappy_dense, lambda n: n + n // 6 + 64,
+                         "snappy")
+    err = held(codec_snappy.walk, codec_snappy._walk_plain, cases,
+               "snappy_walk")
+    r["max_abs_err"] = max(err, r["max_abs_err"])
+    check(r["max_abs_err"] == 0, "snappy_walk kernel differs from its "
+          f"plain version ({r['max_abs_err']})")
+    for name, shape in (("lz4_walk", f"{m_rows.shape[0]} live rows of the "
+                         f"byte API's 4 MB LZ4 synth chunk (out_len {n})"),
+                        ("snappy_walk", f"{s_rows.shape[0]} live rows of the "
+                         f"host engine's 4 MB snappy synth chunk (out_len "
+                         f"{sn}), {over.numel()} of them also at the "
+                         "escalated budget")):
+        r = out[name]
+        print(f"kernel {name} inputs: {shape}, {r['records']} records, "
+              f"{r['accepted']} rows accepted at the default budget; held "
+              f"on host-engine, generated and token-dense rows too")
+    r = out["lz4_walk"]
+    print(f"kernel lz4_walk on {r['long_rows']} generated {ln >> 10} KB "
+          f"row ({r['long_records']} records, {r['long_accepted']} accepted): "
+          f"{r['long_ms']:.4f} ms per call alone; {r['long_device_ms']:.4f} "
+          f"ms on the card ({_device_label(r['long_device_ms_source'])}); "
+          f"plain {r['long_plain_ms']:.4f} ms (on the host); bound "
+          f"{r['long_bound_ms']:.6f} ms")
+    return out
+
+
+def _pack_one(stream: bytes, width: int):
+    buf = np.zeros((1, width), np.uint8)
+    buf[0, :len(stream)] = np.frombuffer(stream, np.uint8)
+    return buf, np.asarray([len(stream)], np.int32)
+
+
 def phase_kernels(dev, chunk_bytes, host_chunk, reps):
-    """Each kernel against its plain version, on the same tensors."""
+    """Each kernel against its plain version on the same inputs (the
+    serial machines' plain versions on a host copy, see _host_plain)."""
     from cblosc_tpu_torch.gpu import codec, expand, structured
 
     out = {}
@@ -246,14 +498,16 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
     E = structured.record_slots(maxrec)
 
     # K2 walk
-    err = 0
-    for rows, cs, ol in ((a_rows, a_cs, n), (h_rows, h_cs, hn), *gen):
+    rf, dist, uni, ok = structured.walk(a_rows, a_cs, n, maxrec)
+    p, walk_plain_ms = _host_plain(structured._walk_plain, a_rows, a_cs, n, E)
+    err = _maxdiff((*rf, dist, uni, ok), p[0] + p[1:])
+    for rows, cs, ol in ((h_rows, h_cs, hn), *gen):
         mr = structured.max_records(ol)
         k = structured.walk(rows, cs, ol, mr)
-        p = structured._walk_plain(rows, cs, ol, structured.record_slots(mr))
+        p, _ = _host_plain(structured._walk_plain, rows, cs, ol,
+                           structured.record_slots(mr))
         err = max(err, _maxdiff(k[0] + k[1:], p[0] + p[1:]))
     check(err == 0, f"walk kernel differs from its plain version ({err})")
-    rf, dist, uni, ok = structured.walk(a_rows, a_cs, n, maxrec)
     check(bool(ok.all()), "main-path walk rows must all parse")
     nrec = int((rf[0] >= 0).sum())
     N = a_rows.shape[0]
@@ -261,13 +515,13 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
     walk_call = lambda: structured.walk(a_rows, a_cs, n, maxrec)  # noqa: E731
     # bound: the rows read and the valid records written (bound_ms), or
     # every record slot, since the kernel writes the -1/zero tail too
+    device_ms, source = _device_ms(dev, walk_call, "::walk")
     out["walk"] = dict(
         max_abs_err=err,
         ms=_ms(dev, walk_call, reps),
-        device_ms=_device_ms(dev, walk_call, "::walk"),
+        device_ms=device_ms, device_ms_source=source,
         call_ms=_ms(dev, walk_call, reps, batch=BATCH),
-        plain_ms=_ms(dev, lambda: structured._walk_plain(a_rows, a_cs, n, E),
-                     1),
+        plain_ms=walk_plain_ms, plain_on="host",
         bound_ms=(csum + 4 * N + 16 * nrec + 9 * N) / HBM_BYTES_PER_S * 1e3,
         bound_slots_ms=(csum + 4 * N + 16 * N * E + 9 * N)
         / HBM_BYTES_PER_S * 1e3)
@@ -277,14 +531,9 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
     # than it reads) and the records it emitted.
     cmr = structured.max_records(cn)
     long_call = lambda: structured.walk(c_rows, c_cs, cn, cmr)  # noqa: E731
-    plain = {}
-
-    def long_plain():       # one timed call (a serial 256 KB walk is slow)
-        plain["out"] = structured._walk_plain(c_rows, c_cs, cn,
-                                              structured.record_slots(cmr))
-
-    long_plain_ms = _ms(dev, long_plain, 1, warmup=0)
-    k, p = long_call(), plain["out"]
+    p, long_plain_ms = _host_plain(structured._walk_plain, c_rows, c_cs, cn,
+                                   structured.record_slots(cmr))
+    k = long_call()
     err = _maxdiff(k[0] + k[1:], p[0] + p[1:])
     check(err == 0, f"walk kernel differs from its plain version ({err})")
     (lkind, larg, _, llen), _, _, lok = k
@@ -292,9 +541,10 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
           "the clevel-9 row must overflow the default walk budget")
     lread = int(torch.where(lkind == 0, larg + llen, 0).amax(dim=1).sum())
     Nc = c_rows.shape[0]
+    device_ms, source = _device_ms(dev, long_call, "::walk")
     out["walk"].update(
         long_ms=_ms(dev, long_call, reps),
-        long_device_ms=_device_ms(dev, long_call, "::walk"),
+        long_device_ms=device_ms, long_device_ms_source=source,
         long_plain_ms=long_plain_ms,
         long_bound_ms=(lread + 4 * Nc + 16 * int((lkind >= 0).sum()) + 9 * Nc)
         / HBM_BYTES_PER_S * 1e3)
@@ -307,42 +557,39 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
                                 [expand._expand_plain(rows, rfx, ol)]))
     check(err == 0, f"expand kernel differs from its plain version ({err})")
     expand_call = lambda: expand.expand(a_rows, rf, n)  # noqa: E731
+    device_ms, source = _device_ms(dev, expand_call, "::expand_kernel")
     out["expand"] = dict(
         max_abs_err=err,
         ms=_ms(dev, expand_call, reps),
-        device_ms=_device_ms(dev, expand_call, "::expand_kernel"),
+        device_ms=device_ms, device_ms_source=source,
         call_ms=_ms(dev, expand_call, reps, batch=BATCH),
         plain_ms=_ms(dev, lambda: expand._expand_plain(a_rows, rf, n),
-                     1),
+                     1), plain_on="card",
         bound_ms=(csum + 16 * nrec + N * n) / HBM_BYTES_PER_S * 1e3)
 
     # K3 generic decoder: the main path's clevel-9 host-chunk rows, and
     # valid and corrupted host-encoder streams
     k = codec.decode(h_rows, h_cs, hn)
-    p = codec._decode_plain(h_rows, h_cs, hn)
-    err = _maxdiff(k, p)
+    err = _maxdiff(k, _host_plain(codec._decode_plain, h_rows, h_cs, hn)[0])
     check(not bool(k[2][:nvalid].any()), "valid host streams must decode")
     check(bool(k[2][nvalid:].any()), "some corrupted streams must report err")
     for rows, cs, ol in gen:
         err = max(err, _maxdiff(codec.decode(rows, cs, ol),
-                                codec._decode_plain(rows, cs, ol)))
+                                _host_plain(codec._decode_plain, rows, cs,
+                                            ol)[0]))
     k = codec.decode(c_rows, c_cs, cn)
-    plain = {}
-
-    def plain_call():       # one timed call (a serial 256 KB decode is slow)
-        plain["out"] = codec._decode_plain(c_rows, c_cs, cn)
-
-    plain_ms = _ms(dev, plain_call, 1, warmup=0)
-    err = max(err, _maxdiff(k, plain["out"]))
+    p, plain_ms = _host_plain(codec._decode_plain, c_rows, c_cs, cn)
+    err = max(err, _maxdiff(k, p))
     check(err == 0, f"decode kernel differs from its plain version ({err})")
     check(not bool(k[2].any()), "host-chunk rows must decode")
     decode_call = lambda: codec.decode(c_rows, c_cs, cn)  # noqa: E731
+    device_ms, source = _device_ms(dev, decode_call, "::decode_kernel")
     out["decode_one"] = dict(
         max_abs_err=err,
         ms=_ms(dev, decode_call, reps),
-        device_ms=_device_ms(dev, decode_call, "::decode_kernel"),
+        device_ms=device_ms, device_ms_source=source,
         call_ms=_ms(dev, decode_call, reps, batch=BATCH),
-        plain_ms=plain_ms,
+        plain_ms=plain_ms, plain_on="host",
         bound_ms=(int(c_cs.sum()) + 4 * Nc + Nc * cn + 5 * Nc)
         / HBM_BYTES_PER_S * 1e3)
     # tokens of the timed rows: the walk's records at a budget every
@@ -356,87 +603,119 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
           f"bytes; {d['ms'] * 1e6 / ntok:.1f} ns per token per call alone, "
           f"{d['device_ms'] * 1e6 / ntok:.1f} on the card")
     for name, r in out.items():
-        print(f"kernel {name}: equal to plain (max_abs_err {r['max_abs_err']}); "
-              f"{r['ms']:.4f} ms per call alone (CUDA events); "
-              f"{r['device_ms']:.4f} ms on the card (profiler, per launch); "
-              f"{r['call_ms']:.4f} ms per call ({BATCH} back to back); plain "
-              f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.6f} ms")
+        print_kernel(name, r)
     w = out["walk"]
     print(f"kernel walk on the {cn >> 10} KB clevel-9 row (budget {cmr}): "
           f"{w['long_ms']:.4f} ms per call alone; {w['long_device_ms']:.4f} "
-          f"ms on the card; plain {w['long_plain_ms']:.4f} ms; bound "
+          f"ms on the card ({_device_label(w['long_device_ms_source'])}); "
+          f"plain {w['long_plain_ms']:.4f} ms (on the host); bound "
           f"{w['long_bound_ms']:.6f} ms")
     return out
 
 
-def phase_byte_api(dev, chunk_bytes, low, host_chunk):
-    """The main path through the entry points a user calls."""
+def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks):
+    """The main path through the entry points a user calls.
+    codec_chunks: [(label, data, chunk, walk kernel)] of host-engine LZ4
+    and snappy chunks, each decoded through gpu.host_api on the card."""
     import cblosc_tpu_torch as tb
     from cblosc_tpu_torch.core import engine
     from cblosc_tpu_torch.format import constants as C
-    from cblosc_tpu_torch.gpu import kernels
+    from cblosc_tpu_torch.gpu import host_api, kernels
     from cblosc_tpu_torch.utils.timing import synth
 
-    def roundtrip(label, clevel, shuffle, ts, data):
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def counted(fn):
+        """fn() with every launch count zeroed just before it and read
+        just after; the counts add to the phase's totals."""
+        kernels.reset_launches()
+        out = fn()
+        delta = dict(kernels.LAUNCHES)
+        for k, v in delta.items():
+            totals[k] += v
+        return out, delta
+
+    def device_decode(label, c, need):
+        """Decode through the device bridge (None would be the host
+        fallback) and check that the kernels in need launched."""
         t0 = time.perf_counter()
-        c = tb.compress_ctx(clevel, shuffle, ts, data, device=dev)
+        r, delta = counted(lambda: host_api.decompress_chunk(c, None, dev))
         t1 = time.perf_counter()
-        before = dict(kernels.LAUNCHES)
-        r = tb.decompress_ctx(c, device=dev)
-        t2 = time.perf_counter()
+        check(r is not None, f"{label}: the device path declined the chunk")
+        if dev.type == "cuda":
+            for name in need:
+                check(delta[name] > 0, f"{label}: decode did not launch {name}")
+        return r, t1 - t0, delta
+
+    def roundtrip(label, clevel, shuffle, ts, data, compressor="blosclz",
+                  need=()):
+        t0 = time.perf_counter()
+        c = tb.compress_ctx(clevel, shuffle, ts, data, compressor=compressor,
+                            device=dev)
+        t1 = time.perf_counter()
+        r, td, delta = device_decode(label, c, need)
         check(r == data, f"{label}: round trip differs")
+        check(counted(lambda: tb.decompress_ctx(c, device=dev))[0] == data,
+              f"{label}: byte-API decode differs")
         check(engine.decompress_chunk(c) == data,
               f"{label}: host engine cannot decode the device chunk")
-        delta = {k: kernels.LAUNCHES[k] - before[k] for k in before}
         print(f"byte api {label}: {len(data)} B -> {len(c)} B "
               f"(ratio {len(data) / len(c):.4f}); host clock compress "
-              f"{t1 - t0:.3f} s, decompress {t2 - t1:.3f} s (first calls); "
+              f"{t1 - t0:.3f} s, decompress {td:.3f} s (first calls); "
               f"decompress launches {delta}")
 
     n = chunk_bytes
+    sy = synth(n, 8, 19).tobytes()
+    ar = np.arange(n // 4, dtype=np.int32).tobytes()
 
-    kernels.reset_launches()
-    roundtrip("synth sbits19 ts8 shuffle", 1, C.SHUFFLE, 8,
-              synth(n, 8, 19).tobytes())
-    before = dict(kernels.LAUNCHES)
-    roundtrip("int32 arange ts4 shuffle", 1, C.SHUFFLE, 4,
-              np.arange(n // 4, dtype=np.int32).tobytes())
-    if dev.type == "cuda":
-        check(kernels.LAUNCHES["walk"] > before["walk"]
-              and kernels.LAUNCHES["expand"] > before["expand"],
-              "int32 arange decode must launch the walk and expand kernels")
+    roundtrip("synth sbits19 ts8 shuffle", 1, C.SHUFFLE, 8, sy)
+    roundtrip("int32 arange ts4 shuffle", 1, C.SHUFFLE, 4, ar,
+              need=("walk", "expand"))
     roundtrip("float64 linspace ts8 shuffle", 1, C.SHUFFLE, 8,
               np.linspace(-1.0, 1.0, n // 8).tobytes())
-    before = dict(kernels.LAUNCHES)
-    r = tb.decompress_ctx(host_chunk, device=dev)
+    for comp in ("lz4", "lz4hc"):
+        roundtrip(f"{comp} synth sbits19 ts8 shuffle", 1, C.SHUFFLE, 8, sy,
+                  comp, need=("lz4_walk",))
+        roundtrip(f"{comp} int32 arange ts4 shuffle", 1, C.SHUFFLE, 4, ar,
+                  comp, need=("lz4_walk", "expand"))
+    r, _, delta = device_decode("host-engine clevel-9 blosclz chunk",
+                                host_chunk, ("decode_one",))
     check(r == low, "host-engine clevel-9 chunk decode differs")
-    delta = {k: kernels.LAUNCHES[k] - before[k] for k in before}
     print(f"byte api host-engine clevel-9 low-entropy chunk: {len(low)} B "
           f"<- {len(host_chunk)} B decoded on {dev.type}; "
           f"decompress launches {delta}")
-    counts = dict(kernels.LAUNCHES)
+    for label, data, chunk, walk in codec_chunks:
+        r, td, delta = device_decode(label, chunk, (walk, "expand"))
+        check(r == data, f"{label}: decode differs")
+        check(counted(lambda: tb.decompress_ctx(chunk, device=dev))[0]
+              == data, f"{label}: byte-API decode differs")
+        print(f"byte api {label}: {len(data)} B <- {len(chunk)} B decoded "
+              f"on {dev.type} in {td:.3f} s (host clock, first call); "
+              f"decompress launches {delta}")
     if dev.type == "cuda":
-        for name, c in counts.items():
+        for name, c in totals.items():
             check(c > 0, f"kernel {name} was not launched on the main path")
     warm = _ms(dev, lambda: tb.decompress_ctx(host_chunk, device=dev), 5)
     print(f"byte api host-engine clevel-9 chunk decode, warm: {warm:.4f} ms "
           f"(median of 5, {'CUDA events' if dev.type == 'cuda' else 'host clock'})")
-    return counts
+    return totals
 
 
 def phase_bench(dev, label, data, typesize, chunk_bytes, reps, card,
-                need=()):
+                need=(), code=None):
     """Device-resident bench geometry (bench.py): compress_blocks ->
-    mask_past_csize -> decompress_blocks over the whole working set.
-    The launch counters are zeroed just before the first decode and read
-    just after it; each kernel named in need must have launched."""
+    mask_past_csize -> decompress_blocks over the whole working set, with
+    codec `code` (blosclz by default). The launch counters are zeroed
+    just before the first decode and read just after it; each kernel
+    named in need must have launched."""
     from cblosc_tpu_torch.core import policy
     from cblosc_tpu_torch.format import constants as C
     from cblosc_tpu_torch.gpu import kernels, pipeline
 
+    code = C.BLOSCLZ if code is None else code
     bs = policy.compute_blocksize_device(1, typesize, chunk_bytes)
     nsplits = policy.nsplits_encode(
-        not policy.split_block(C.BLOSCLZ, typesize, bs), typesize, False)
+        not policy.split_block(code, typesize, bs), typesize, False)
     neblock = bs // nsplits
     x = torch.from_numpy(data.reshape(-1, bs).copy()).to(dev)
     total = x.numel()
@@ -444,7 +723,7 @@ def phase_bench(dev, label, data, typesize, chunk_bytes, reps, card,
     def comp():
         return pipeline.compress_blocks(
             x, C.SHUFFLE, typesize, nsplits,
-            policy.device_min_bytes_per_iter(1), C.BLOSCLZ,
+            policy.device_min_bytes_per_iter(1), code,
             policy.device_min_cratio_x100(1), False)
 
     slots, cs = comp()
@@ -452,7 +731,7 @@ def phase_bench(dev, label, data, typesize, chunk_bytes, reps, card,
 
     def dec():
         return pipeline.decompress_blocks(rows, cs, neblock, C.SHUFFLE,
-                                          typesize, nsplits)
+                                          typesize, nsplits, code)
 
     kernels.reset_launches()
     out, err = dec()
@@ -469,7 +748,8 @@ def phase_bench(dev, label, data, typesize, chunk_bytes, reps, card,
     tc = _ms(dev, comp, reps)
     td = _ms(dev, dec, reps)
     print(json.dumps({
-        "bench": label, "bytes": total, "clevel": 1, "typesize": typesize,
+        "bench": label, "codec": C.COMPNAMES[code], "bytes": total,
+        "clevel": 1, "typesize": typesize,
         "ratio": total / cbytes, "compress_ms": tc, "decompress_ms": td,
         "compress_gbps": total / tc / 1e6, "decompress_gbps": total / td / 1e6,
         "decompress_launches": launches, "card": card,
@@ -493,27 +773,56 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
 
+    from cblosc_tpu_torch.format import constants as C
+
     low, host_chunk = host_engine_chunk(chunk_bytes)
+    sy = synth(chunk_bytes, 8, 19).tobytes()
+    t0 = time.perf_counter()
+    lz4_chunk = host_codec_chunk(C.LZ4, 5, sy, 8)
+    snappy_chunk = host_codec_chunk(C.SNAPPY, 1, sy, 8)
+    print(f"host-engine chunks of 4 MB synth: LZ4 clevel 5 {len(lz4_chunk)} B, "
+          f"snappy {len(snappy_chunk)} B ({time.perf_counter() - t0:.1f} s)")
+    t_run = time.perf_counter()
+
+    def stamp(label):
+        print(f"[{time.perf_counter() - t_run:.1f} s] {label}")
+
     stats = phase_kernels(dev, chunk_bytes, host_chunk, reps)
-    counts = phase_byte_api(dev, chunk_bytes, low, host_chunk)
+    stamp("phase 2: expand, walk, decode_one held and timed")
+    stats.update(phase_codec_walks(dev, chunk_bytes, snappy_chunk, reps))
+    stamp("phase 2: lz4_walk, snappy_walk held and timed")
+    for name in ("lz4_walk", "snappy_walk"):
+        print_kernel(name, stats[name])
+    counts = phase_byte_api(
+        dev, chunk_bytes, low, host_chunk,
+        [("host-engine LZ4 clevel-5 synth chunk", sy, lz4_chunk, "lz4_walk"),
+         ("host-engine snappy synth chunk", sy, snappy_chunk, "snappy_walk")])
     print(json.dumps({"launches": counts}))
+    stamp("phase 3: byte API")
     phase_bench(dev, "synth sbits19 ts8", synth(workset, 8, 19), 8,
                 chunk_bytes, reps, card)
     phase_bench(dev, "int32 arange ts4",
                 np.arange(workset // 4, dtype=np.int32).view(np.uint8), 4,
                 chunk_bytes, reps, card, need=("walk", "expand"))
+    phase_bench(dev, "lz4 synth sbits19 ts8", synth(workset, 8, 19), 8,
+                chunk_bytes, reps, card, need=("lz4_walk",), code=C.LZ4)
+    stamp("phase 4: 128 MB round trips")
 
     src = {"expand": ("cblosc_tpu_torch/csrc/expand.cu",
                       "cblosc_tpu/tpu/expand.py:258"),
            "walk": ("cblosc_tpu_torch/csrc/walk.cu",
                     "cblosc_tpu/tpu/structured.py:149"),
            "decode_one": ("cblosc_tpu_torch/csrc/decode.cu",
-                          "cblosc_tpu/tpu/codec.py:741")}
+                          "cblosc_tpu/tpu/codec.py:741"),
+           "lz4_walk": ("cblosc_tpu_torch/csrc/lz4_walk.cu",
+                        "cblosc_tpu/tpu/codec_lz4.py:338"),
+           "snappy_walk": ("cblosc_tpu_torch/csrc/snappy_walk.cu",
+                           "cblosc_tpu/tpu/codec_snappy.py:58")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": counts[name],
          **stats[name], "bound_by": "bytes", "library_ms": None}
-        for name in ("expand", "walk", "decode_one")]}
+        for name in src]}
     print(json.dumps(line))
 
 

@@ -87,19 +87,43 @@ def pack_rows(streams: list, width: int, rows: int = 0):
     return buf, cs
 
 
-_walk_jit = jax.jit(js._walk_batch, static_argnums=(2, 3))
+_walk_jits = {}
 
 
-def jax_walk(buf, cs, n: int, compact: bool = True):
-    """The JAX blosclz walk on (buf, cs) as the JAX decoder runs it
-    (rows padded for its windows), compiled once per shape. Returns
-    (records as numpy fields, dist, uni, ok)."""
+def jax_walk(buf, cs, n: int, compact: bool = True, walk_batch=None,
+             maxrec: int = 0):
+    """A JAX walk (the blosclz walk unless walk_batch is given, e.g.
+    codec_lz4._walk_batch) on (buf, cs) as the JAX decoder runs it (rows
+    padded for its windows; maxrec defaults to the blosclz budget),
+    compiled once per shape. Returns (records as numpy fields, dist,
+    uni, ok)."""
+    walk_batch = walk_batch or js._walk_batch
+    fn = _walk_jits.setdefault(
+        walk_batch, jax.jit(walk_batch, static_argnums=(2, 3)))
     W = buf.shape[1]
     Wpad = max(-(-(W + js._MARGIN) // 128) * 128, js._WINW)
-    rf, dist, uni, ok = _walk_jit(
+    rf, dist, uni, ok = fn(
         jnp.asarray(np.pad(buf, ((0, 0), (0, Wpad - W)))), jnp.asarray(cs),
-        n, js.max_records(n))
+        n, maxrec or js.max_records(n))
     if compact:
         rf = je.compact_records(rf)
     return (tuple(np.array(f) for f in rf), np.array(dist), np.array(uni),
             np.array(ok))
+
+
+def assert_walk_matches_jax(want, got):
+    """On every row the JAX walk accepts, the port's walk accepts it too,
+    with the same valid records in order (the JAX walks leave arg, dst
+    and len of invalid slots undefined), dist and uni. Returns the ok
+    masks (JAX's, the port's) as numpy."""
+    rf, dist, uni, ok = want
+    prf, pdist, puni, pok = (tuple(f.numpy() for f in a) if isinstance(a, tuple)
+                             else a.numpy() for a in got)
+    assert pok[ok].all()                     # the port accepts a superset
+    valid = rf[0] >= 0
+    assert np.array_equal(rf[0][ok], prf[0][ok])
+    for w, g in zip(rf[1:], prf[1:]):
+        assert np.array_equal(np.where(valid, w, 0)[ok], g[ok])
+    assert np.array_equal(dist[ok], pdist[ok])
+    assert np.array_equal(uni[ok], puni[ok])
+    return ok, pok
