@@ -10,9 +10,10 @@ full block), as the JAX package's ``backend="tpu"`` path does.
 fit ``destsize`` (the reference's return-0 contract, blosc.h:167-169).
 
 Codecs: blosclz, lz4 and lz4hc compress and decompress on the device;
-snappy chunks compress on the host engine and decompress on the device.
+snappy and zlib chunks compress on the host engine and decompress on the
+device.
 
-Not ported yet: the zlib and zstd codecs, compress at clevel >= 5
+Not ported yet: the zstd codec, compress at clevel >= 5
 (adaptive-distance mining), getitem, global state, BLOSC_* environment
 overrides and threads.
 """
@@ -55,7 +56,7 @@ def compress_ctx(
     code = C.COMPCODES.get(compressor)
     if code is None:
         raise ValueError(f"unknown compressor '{compressor}'")
-    if code in (C.ZLIB, C.ZSTD):
+    if code == C.ZSTD:
         raise NotImplementedError(
             f"codec '{compressor}' is not ported to the PyTorch package yet")
     ctx = engine.build_context(

@@ -6,8 +6,8 @@ JAX package's device bridge does: the leftover block (different
 geometry, blosc.c:627-633), buffers with no full block, memcpyed chunks
 (clevel 0 or tiny buffers), and chunk decoding when the device path
 declines. Its codecs are the numpy oracles of blosclz, LZ4/LZ4HC and
-snappy (ops/codecs/); zlib and zstd are not ported yet and raise
-NotImplementedError.
+snappy and CPython's built-in zlib (ops/codecs/); zstd is not ported yet
+and raises NotImplementedError.
 
 A frozen `CompressionContext` carries all per-job state; blocks are laid
 out in block order (deterministic, like the device's exclusive scan).
@@ -23,7 +23,7 @@ import numpy as np
 from ..format import constants as C
 from ..format.header import ChunkHeader, FormatError, make_flags, read_bstarts, validate_header
 from ..ops import filters_np
-from ..ops.codecs import blosclz, lz4, snappy
+from ..ops.codecs import blosclz, lz4, snappy, zlib_
 from . import policy
 
 
@@ -50,8 +50,8 @@ class CompressionContext:
 
 def _codec(compcode: int):
     """(compress, decompress) over one split stream, as the JAX package's
-    codec registry wraps them (models/registry.py). zlib and zstd exist
-    in the format but not in this package yet."""
+    codec registry wraps them (models/registry.py). zstd exists in the
+    format but not in this package yet."""
     if compcode == C.BLOSCLZ:
         return (lambda data, maxout, clevel, split:
                 blosclz.compress(clevel, data, maxout, split),
@@ -68,6 +68,10 @@ def _codec(compcode: int):
         return (lambda data, maxout, clevel, split:
                 snappy.compress(data, maxout),
                 snappy.decompress)
+    if compcode == C.ZLIB:
+        return (lambda data, maxout, clevel, split:
+                zlib_.compress(data, maxout, clevel),
+                zlib_.decompress)
     if compcode in C.COMPNAMES:
         raise NotImplementedError(
             f"codec '{C.COMPNAMES[compcode]}' is not ported to the "

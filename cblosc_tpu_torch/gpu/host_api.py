@@ -9,15 +9,16 @@ byte-for-byte the chunk the JAX package writes, a conforming chunk
 ``compress_chunk`` and ``decompress_chunk`` return None, and the byte
 API takes the host engine, exactly where the JAX bridge does: memcpyed
 chunks, no full block, a blocksize that is not a multiple of the split
-count, a codec without a device encoder (snappy compresses on the
-host), and LZ4 or snappy chunks whose streams the device walk rejects
-even with the escalated record budget (foreign geometry). One more case
+count, a codec without a device encoder (snappy and zlib compress on
+the host), and LZ4, snappy or zlib chunks whose streams the
+device walk rejects even with the escalated budget (foreign geometry;
+for zlib also stored blocks and preset dictionaries). One more case
 goes to the host here: LZ4 splits wider than the device encoder's int32
 sort keys allow (about 2 MiB, only with a forced blocksize), which the
-JAX encoder would write corrupt (gpu/pipeline.encoder decides). zlib and
-zstd raise NotImplementedError: the JAX package decodes them on its
-device, this one not yet. Nothing goes to the host because a card or a
-kernel is missing.
+JAX encoder would write corrupt (gpu/pipeline.encoder decides). zstd
+raises NotImplementedError: the JAX package decodes it on its device,
+this one not yet. Nothing goes to the host because a card or a kernel
+is missing.
 """
 
 from __future__ import annotations
@@ -123,13 +124,16 @@ def _fallback_memcpy(ctx, src: np.ndarray) -> bytes:
 
 
 def _escalated_budget(neblock: int, compcode: int) -> int:
-    """Retry record budget for token-dense LZ4 and snappy chunks (short
-    matches every few bytes); 0 for blosclz, whose overflow rows decode
-    with the generic decoder (K3)."""
-    from . import structured
+    """Retry budget for token-dense LZ4 and snappy chunks (short matches
+    every few bytes: records) and event-dense zlib chunks (events); 0
+    for blosclz, whose overflow rows decode with the generic decoder
+    (K3)."""
+    from . import codec_zlib, structured
 
     if compcode == C.BLOSCLZ:
         return 0
+    if compcode == C.ZLIB:
+        return codec_zlib.high_events(neblock)
     return structured.high_records(neblock)
 
 
@@ -171,7 +175,7 @@ def decompress_chunk(chunk_bytes, destsize: int | None,
         return b""
     if hdr.memcpyed:
         return None
-    if hdr.compcode not in pipeline.DEVICE_DECODE_CODECS:     # zlib, zstd
+    if hdr.compcode not in pipeline.DEVICE_DECODE_CODECS:     # zstd
         raise NotImplementedError(
             f"codec '{hdr.compname}' is not ported to the PyTorch package "
             "yet")
@@ -203,7 +207,7 @@ def decompress_chunk(chunk_bytes, destsize: int | None,
     )
     if bool(err.any()):
         hi = _escalated_budget(neblock, hdr.compcode)
-        if hi:              # token-dense streams: one widened-budget retry
+        if hi:      # token- or event-dense streams: one wider-budget retry
             blocks, err = pipeline.decompress_blocks(
                 rows, cs_dev, neblock, doshuffle, hdr.typesize, nsplits,
                 hdr.compcode, hi)

@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> source file
 SOURCES = {"expand": "expand.cu", "walk": "walk.cu", "decode_one": "decode.cu",
-           "lz4_walk": "lz4_walk.cu", "snappy_walk": "snappy_walk.cu"}
+           "lz4_walk": "lz4_walk.cu", "snappy_walk": "snappy_walk.cu",
+           "zlib_walk": "zlib_walk.cu"}
 
 LAUNCHES = {name: 0 for name in SOURCES}
 
@@ -47,6 +48,8 @@ _SIGS = {
     "decode_one": ("decode_launch", [_P, _I, _I, _P, _I, _P, _P, _P, _P]),
     "lz4_walk": ("lz4_walk_launch", _WALK),
     "snappy_walk": ("snappy_walk_launch", _WALK),
+    # the zlib walk also writes the literal tape and its length
+    "zlib_walk": ("zlib_walk_launch", _WALK[:6] + [_P, _P] + _WALK[6:]),
 }
 
 _lock = threading.Lock()

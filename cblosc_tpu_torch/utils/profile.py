@@ -9,9 +9,12 @@ sets (``synth`` sbits 19 typesize 8, the bench data; int32 arange
 typesize 4, whose decode runs the walk and expand kernels) with blosclz,
 and on ``synth`` with LZ4 (whose decode runs the LZ4 walk), it profiles
 one steady call each of ``gpu.pipeline.compress_blocks`` and
-``decompress_blocks``; then one steady byte-API ``decompress_ctx`` of a
-clevel-9 chunk the host engine writes (256 KB of low-entropy bytes, the
-token-dense split the generic decoder takes). It prints one JSON line
+``decompress_blocks``; then one steady byte-API ``decompress_ctx`` each
+of two chunks the host engine writes: a clevel-9 blosclz chunk (256 KB
+of low-entropy bytes, the token-dense split the generic decoder takes)
+and a clevel-5 zlib chunk of 4 MB synth (128 KB splits; the zlib walk
+runs twice, the default budget then the escalated one, as the byte API
+retries). It prints one JSON line
 per call: the host wall time of the call (ending in a synchronize), the
 summed device time of its kernels, their share of the wall time (the
 device-busy share; the rest is idle, waiting on the host), and the top
@@ -139,6 +142,12 @@ def main() -> None:
     chunk = engine.compress_chunk(ctx, low.tobytes())
     r = _profile(lambda: api.decompress_ctx(chunk, device=dev),
                  "decompress_ctx host-engine clevel-9 256 KB", card)
+    print(json.dumps(r))
+    z = sy[:4 << 20].tobytes()
+    ctx = engine.build_context(5, C.SHUFFLE, 8, len(z), len(z) + 16, C.ZLIB)
+    chunk = engine.compress_chunk(ctx, z)
+    r = _profile(lambda: api.decompress_ctx(chunk, device=dev),
+                 "decompress_ctx host-engine zlib clevel-5 synth 4 MB", card)
     print(json.dumps(r))
 
 

@@ -1,5 +1,5 @@
 """Raw blosclz, LZ4 and snappy streams built token by token from a seed,
-for parity checks.
+and zlib streams from the library's own strategies, for parity checks.
 
 Each stream is written straight in its wire format beside the bytes it
 decodes to, so a test or the smoke run can hold a decoder or a walk to
@@ -17,12 +17,13 @@ corners:
 within 8 bytes of csize (the bytes past csize kept in the row),
 one-byte corruptions, and random bytes. :func:`lz4_rows` and
 :func:`snappy_rows` do the same for the LZ4 block format and raw snappy
-(their kinds are listed there).
+(their kinds are listed there), :func:`zlib_rows` for zlib streams.
 """
 
 from __future__ import annotations
 
 import struct
+import zlib
 
 import numpy as np
 
@@ -553,3 +554,328 @@ def snappy_rows(seed: int, out_len: int, width: int, garbage: int = 8):
             + _corrupt_and_garbage(rng, valid, width, garbage))
     buf, cs = _pack(rows, width)
     return buf, cs, len(valid), len(bad)
+
+
+# ---------------------------------------------------------------------------
+# zlib streams (blosc/blosc.c:469-496 wrap the library's one-shot calls)
+# ---------------------------------------------------------------------------
+#
+# Valid rows come from zlib.compressobj, each checked by a bitwise parse
+# of its block types (deflate_blocks):
+#   level1/6/9  Z_DEFAULT_STRATEGY at levels 1, 6 and 9
+#   fixed       Z_FIXED: fixed-Huffman blocks only
+#   rle         Z_RLE: distance-1 matches only
+#   filtered    Z_FILTERED
+#   multiblock  four pieces, each closed by Z_PARTIAL_FLUSH (which ends a
+#               block with an empty fixed-code block; Z_SYNC_FLUSH and
+#               Z_FULL_FLUSH would add empty stored blocks, which err)
+#   dense       Z_HUFFMAN_ONLY: one literal event per output byte, past
+#               the default event budget, within high_events
+# One row the library itself rejects but the JAX machine decodes:
+#   oversub     a dynamic block whose literal/length code is
+#               over-subscribed (one length-3 code falls past the
+#               canonical range) and whose distance code is incomplete:
+#               the JAX rule (the shortest length whose range holds the
+#               code) decodes the reachable codes, so every walk accepts
+#               it, to "abab" then "b" repeated (matches at distance 1)
+# Error rows, which every walk must reject: CM != 8, the FDICT bit,
+# csize < 8, a stored block (level 0), BTYPE 3, a distance beyond the
+# output so far, output past out_len, a truncated stream, and a
+# code-length repeat (16) at position 0.
+
+ZLIB_VALID = ("level1", "level6", "level9", "fixed", "rle", "filtered",
+              "multiblock")
+ZLIB_BAD = ("cm", "fdict", "short", "stored", "btype3", "far_dist",
+            "overrun", "truncated", "rep16_first")
+ZLIB_ODD = ("oversub",)
+ZLIB_KINDS = ZLIB_VALID + ("dense",) + ZLIB_ODD + ZLIB_BAD
+
+# (seed, out_len, row width): the width is the pipeline's gather width,
+# out_len + 64. One shape for the CPU tests (each is a JAX compile that
+# takes about a minute); the card adds 8 KB and 32 KB rows
+ZLIB_CASES = ((41, 1024, 1088),)
+ZLIB_CARD_CASES = ZLIB_CASES + ((42, 8192, 8256), (43, 32768, 32832))
+
+_ZLIB_HDR = b"\x78\x01"       # CM 8, 32 KB window, FCHECK valid
+
+
+def _zlib_tables():
+    from ..gpu import codec_zlib as cz
+
+    return cz._LBASE, cz._LEXTRA, cz._DBASE, cz._DEXTRA, cz._CLORDER, \
+        cz._FIXED_LL
+
+
+def deflate_blocks(stream: bytes) -> list:
+    """The BTYPE of every block of a zlib stream, from a bitwise parse of
+    RFC 1951 that skips the payloads. Raises ValueError on a malformed
+    stream."""
+    lbase, lextra, dbase, dextra, clorder, fixed_ll = _zlib_tables()
+    data, pos = stream[2:], 0
+
+    def bits(n):
+        nonlocal pos
+        v = 0
+        for i in range(n):
+            if pos >> 3 >= len(data):
+                raise ValueError("stream ends inside a block")
+            v |= ((data[pos >> 3] >> (pos & 7)) & 1) << i
+            pos += 1
+        return v
+
+    def table(lengths):
+        code, tab = 0, {}
+        for b in range(1, 16):
+            for sym, ln in enumerate(lengths):
+                if ln == b:
+                    tab[(b, code)] = sym
+                    code += 1
+            code <<= 1
+        return tab
+
+    def sym(tab):
+        c = 0
+        for b in range(1, 16):
+            c = (c << 1) | bits(1)
+            if (b, c) in tab:
+                return tab[(b, c)]
+        raise ValueError("invalid code")
+
+    types = []
+    while True:
+        final, btype = bits(1), bits(2)
+        types.append(btype)
+        if btype == 3:
+            raise ValueError("BTYPE 3")
+        if btype == 0:
+            pos = (pos + 7) & ~7
+            n = bits(16)
+            bits(16)
+            pos += 8 * n
+        else:
+            if btype == 1:
+                lt, dt = table(fixed_ll), table([5] * 30)
+            else:
+                hlit, hdist, hclen = bits(5) + 257, bits(5) + 1, bits(4) + 4
+                cl = [0] * 19
+                for k in range(hclen):
+                    cl[clorder[k]] = bits(3)
+                ct, L = table(cl), []
+                while len(L) < hlit + hdist:
+                    s = sym(ct)
+                    if s < 16:
+                        L.append(s)
+                    elif s == 16:
+                        L += [L[-1]] * (3 + bits(2))
+                    else:
+                        L += [0] * (3 + bits(3) if s == 17 else 11 + bits(7))
+                lt, dt = table(L[:hlit]), table(L[hlit:])
+            while (s := sym(lt)) != 256:
+                if s > 256:
+                    bits(int(lextra[s - 257]))
+                    bits(int(dextra[sym(dt)]))
+        if final:
+            return types
+
+
+class _BitWriter:
+    """DEFLATE bits: values LSB-first, Huffman codes MSB-first."""
+
+    def __init__(self):
+        self.acc, self.n = 0, 0
+
+    def put(self, v: int, n: int) -> None:
+        self.acc |= v << self.n
+        self.n += n
+
+    def code(self, c: int, n: int) -> None:
+        self.put(int(format(c, f"0{n}b")[::-1], 2), n)
+
+    def fixed_sym(self, s: int) -> None:
+        if s < 144:
+            self.code(0x30 + s, 8)
+        elif s < 256:
+            self.code(0x190 + s - 144, 9)
+        elif s < 280:
+            self.code(s - 256, 7)
+        else:
+            self.code(0xC0 + s - 280, 8)
+
+    def fixed_match(self, length: int, d: int) -> None:
+        lbase, lextra, dbase, dextra = _zlib_tables()[:4]
+        li = int(np.searchsorted(lbase, length, side="right")) - 1
+        self.fixed_sym(257 + li)
+        self.put(length - int(lbase[li]), int(lextra[li]))
+        di = int(np.searchsorted(dbase, d, side="right")) - 1
+        self.code(di, 5)
+        self.put(d - int(dbase[di]), int(dextra[di]))
+
+    def zlib_stream(self) -> bytes:
+        """The bits as a zlib stream, with a (never checked) adler32."""
+        body = self.acc.to_bytes((self.n + 7) // 8, "little")
+        return _ZLIB_HDR + body + b"\0\0\0\1"
+
+
+def zlib_data(rng, n: int) -> bytes:
+    """n bytes that deflate to short literal stretches between matches
+    of 3..80 bytes at distances 1..32768 (log-uniform)."""
+    out = bytearray(rng.integers(0, 24, 8, dtype=np.uint8).tobytes())
+    while len(out) < n:
+        if rng.random() < 0.25:
+            out += rng.integers(0, 24, int(rng.integers(1, 9)),
+                                dtype=np.uint8).tobytes()
+            continue
+        d = int(np.exp(rng.uniform(0, np.log(min(len(out), 32768) + 1))))
+        d = min(max(d, 1), len(out))
+        for _ in range(int(rng.integers(3, 81))):
+            out.append(out[-d])
+    return bytes(out[:n])
+
+
+def _compress(data: bytes, level: int = 6,
+              strategy: int = zlib.Z_DEFAULT_STRATEGY, pieces: int = 1) -> bytes:
+    """zlib.compressobj's stream of data, cut into `pieces` closed by
+    Z_PARTIAL_FLUSH."""
+    co = zlib.compressobj(level, zlib.DEFLATED, zlib.MAX_WBITS, 8, strategy)
+    cut = [len(data) * k // pieces for k in range(pieces + 1)]
+    out = b""
+    for k in range(pieces):
+        out += co.compress(data[cut[k]:cut[k + 1]])
+        if k + 1 < pieces:
+            out += co.flush(zlib.Z_PARTIAL_FLUSH)
+    return out + co.flush()
+
+
+def zlib_valid(rng, out_len: int, kind: str) -> bytes:
+    """A valid zlib stream of `kind` (ZLIB_VALID or "dense") decoding to
+    out_len bytes, its block types checked."""
+    if kind == "dense":
+        s = _compress(rng.integers(0, 16, out_len, dtype=np.uint8).tobytes(),
+                      6, zlib.Z_HUFFMAN_ONLY)
+        want = None
+    else:
+        data = zlib_data(rng, out_len)
+        level = {"level1": 1, "level9": 9}.get(kind, 6)
+        strategy = {"fixed": zlib.Z_FIXED, "rle": zlib.Z_RLE,
+                    "filtered": zlib.Z_FILTERED}.get(kind,
+                                                     zlib.Z_DEFAULT_STRATEGY)
+        s = _compress(data, level, strategy, 4 if kind == "multiblock" else 1)
+        want = data
+    types = deflate_blocks(s)
+    if 0 in types or len(zlib.decompress(s)) != out_len or (
+            want is not None and zlib.decompress(s) != want):
+        raise AssertionError(f"zlib {kind}: unexpected stream {types}")
+    if kind == "fixed" and set(types) != {1}:
+        raise AssertionError(f"zlib fixed: block types {types}")
+    if kind == "multiblock" and len(types) < 4:
+        raise AssertionError(f"zlib multiblock: block types {types}")
+    return s
+
+
+def zlib_oversub(out_len: int) -> bytes:
+    """The "oversub" row: one final dynamic block, literal/length code
+    lengths a = 1, b = 2, EOB = 257 = 258 = 3 (Kraft sum 9/8: 258 gets
+    the canonical code 8, beyond 3 bits), one distance code of length 1;
+    literals "abab" (plus "a"s to make the rest a multiple of 3), then
+    length-3 matches at distance 1 up to out_len, then EOB."""
+    w = _BitWriter()
+    w.put(1, 1)
+    w.put(2, 2)                                  # dynamic Huffman
+    w.put(259 - 257, 5)                          # HLIT 259
+    w.put(0, 5)                                  # HDIST 1
+    w.put(18 - 4, 4)                             # HCLEN 18 (up to symbol 1)
+    cl = {17: 3, 18: 2, 3: 3, 2: 2, 1: 2}        # complete: 3/4 + 2/8
+    for sym in _zlib_tables()[4][:18]:
+        w.put(cl.get(int(sym), 0), 3)
+    # canonical code-length code: 1 -> 00, 2 -> 01, 18 -> 10, 3 -> 110,
+    # 17 -> 111
+    codes = {1: (0, 2), 2: (1, 2), 18: (2, 2), 3: (6, 3), 17: (7, 3)}
+
+    def zeros(n):
+        while n:
+            k = min(n, 138)
+            w.code(*codes[18])
+            w.put(k - 11, 7)
+            n -= k
+
+    zeros(97)                                    # symbols 0..96
+    w.code(*codes[1])                            # a (97): 1
+    w.code(*codes[2])                            # b (98): 2
+    zeros(256 - 99)                              # symbols 99..255
+    for _ in range(3):                           # EOB, 257, 258: 3
+        w.code(*codes[3])
+    w.code(*codes[1])                            # distance 0: 1
+    # literal/length code: a -> 0, b -> 10, EOB -> 110, 257 -> 111
+    lits = "abab" + "a" * ((out_len - 4) % 3)
+    for ch in lits:
+        w.code(*((0, 1) if ch == "a" else (2, 2)))
+    for _ in range((out_len - len(lits)) // 3):
+        w.code(7, 3)                             # length 3 ...
+        w.code(0, 1)                             # ... at distance 1
+    w.code(6, 3)                                 # EOB
+    return w.zlib_stream()
+
+
+def zlib_bad(rng, out_len: int, kind: str) -> tuple:
+    """(row bytes, csize) of an invalid stream of `kind` (ZLIB_BAD); the
+    row is zero past csize."""
+    s = _compress(zlib_data(rng, out_len))
+    if kind == "cm":
+        return bytes([s[0] ^ 0x01]) + s[1:], len(s)
+    if kind == "fdict":
+        return s[:1] + bytes([s[1] | 0x20]) + s[2:], len(s)
+    if kind == "short":
+        return s[:7], 7
+    if kind == "stored":
+        z = zlib.compress(zlib_data(rng, out_len), 0)
+        if deflate_blocks(z)[0] != 0:
+            raise AssertionError("level 0 must store")
+        return z, len(z)
+    if kind == "btype3":
+        return s[:2] + bytes([s[2] | 0x06]) + s[3:], len(s)
+    if kind == "truncated":
+        return s[:len(s) // 2], len(s) // 2
+    if kind == "overrun":
+        z = _compress(zlib_data(rng, out_len + 64))
+        return z, len(z)
+    w = _BitWriter()
+    if kind == "far_dist":
+        w.put(1, 1)                              # BFINAL
+        w.put(1, 2)                              # fixed Huffman
+        for b in b"abc":
+            w.fixed_sym(b)
+        w.fixed_match(3, 10)                     # 10 > op = 3
+        w.fixed_sym(256)
+    elif kind == "rep16_first":
+        w.put(1, 1)
+        w.put(2, 2)                              # dynamic Huffman
+        w.put(0, 5)                              # HLIT 257
+        w.put(0, 5)                              # HDIST 1
+        w.put(0, 4)                              # HCLEN 4: 16, 17, 18, 0
+        for ln in (1, 0, 0, 1):                  # 0 -> code 0, 16 -> 1
+            w.put(ln, 3)
+        w.code(1, 1)                             # symbol 16 at position 0
+        w.put(0, 2)
+        w.put(0, 40)
+    else:
+        raise ValueError(kind)
+    z = w.zlib_stream()
+    return z, len(z)
+
+
+def zlib_rows(seed: int, out_len: int, width: int, garbage: int = 0):
+    """(buf uint8 (N, width), csizes int32 (N,), kinds): one row of each
+    of ZLIB_KINDS, in that order, zero past csize; with garbage > 0 then
+    a one-byte corruption of each valid row ("flip": over-subscribed and
+    incomplete codes among them) and `garbage` random rows."""
+    rng = np.random.default_rng(seed)
+    valid = [zlib_valid(rng, out_len, k) for k in ZLIB_VALID + ("dense",)]
+    odd = zlib_oversub(out_len)
+    rows = [(s, len(s)) for s in valid] + [(odd, len(odd))]
+    rows += [zlib_bad(rng, out_len, k) for k in ZLIB_BAD]
+    kinds = ZLIB_KINDS
+    if garbage:
+        rows += _corrupt_and_garbage(rng, valid, width, garbage)
+        kinds += ("flip",) * len(valid) + ("garbage",) * garbage
+    buf, cs = _pack(rows, width)
+    return buf, cs, kinds

@@ -29,10 +29,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      also on one generated 128 KB row ("long_*"); they are held besides
      on host-engine rows (LZ4 at clevel 5 and 9, LZ4HC), generated
      streams with corruptions, and a token-dense row at the default and
-     the escalated budget;
+     the escalated budget. The zlib walk (zlib_walk) is held, tape and
+     records included, on the non-dense live rows of the 4 MB synth
+     zlib chunk (clevel 5, 128 KB splits) at the default budget and on
+     generated zlib streams (every strategy, corruptions, one-byte flips,
+     random rows); rows too long for the plain loop (the chunk's
+     dense rows, the generated Huffman-only rows) are held by
+     their K6 + K1 output at the escalated budget against
+     zlib.decompress. It is timed on the chunk's 24 live rows at the
+     escalated budget, the one the byte API settles on;
   3. the main path: byte-API round trips (compress_ctx/decompress_ctx)
      on 4 MB buffers at clevel 1 (blosclz, lz4, lz4hc) plus a clevel-9
-     blosclz, a clevel-5 LZ4 and a snappy chunk from the host engine
+     blosclz, a clevel-5 LZ4, a snappy chunk and zlib chunks (synth at
+     clevels 1, 5 and 9, int32 arange at clevel 5) from the host engine
      decoded on the card (gpu.host_api.decompress_chunk must return
      them: no host fallback); every launch counter is zeroed just before
      each decode and read just after it, the phase's launches are their
@@ -43,7 +52,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      decompress_blocks, verified equal, timed with CUDA events (call
      time on the stream, host syncs included), with the launch counts
      of its first decode (the int32 arange decode must launch the walk
-     and expand kernels, the LZ4 synth decode the LZ4 walk);
+     and expand kernels, the LZ4 synth decode the LZ4 walk); and 128 MB
+     of synth in zlib chunks written by the host engine at clevel 5
+     (host time printed as such), all their rows decoded by
+     decompress_blocks at the escalated budget, verified and timed the
+     same way, with the number of rows that overflow the default budget;
   5. the kernels line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package, and exits
@@ -57,6 +70,7 @@ import json
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -472,6 +486,167 @@ def phase_codec_walks(dev, chunk_bytes, snappy_chunk, reps):
     return out
 
 
+def _zlib_fields(walk):
+    """A zlib walk's outputs as one flat tuple of tensors."""
+    tape, tlen, rf, dist, uni, ok = walk
+    return (tape, tlen, *rf, dist, uni, ok)
+
+
+def _zlib_replayed(dev, rows, cs, n, budget) -> int:
+    """K6 + K1 (codec_zlib.decode) on every row at `budget`: each must
+    decode, to zlib.decompress's bytes of its stream. Returns the rows."""
+    from cblosc_tpu_torch.gpu import codec_zlib
+
+    out, _, err = codec_zlib.decode(rows, cs, n, budget)
+    check(not bool(err.any()), "a valid zlib row did not decode on the card")
+    out, rows_h, cs_h = out.cpu().numpy(), rows.cpu().numpy(), cs.cpu().numpy()
+    for i in range(rows_h.shape[0]):
+        want = zlib.decompress(rows_h[i, :cs_h[i]].tobytes())
+        check(out[i].tobytes() == want,
+              "K6 + K1 differ from zlib.decompress on a zlib row")
+    return rows_h.shape[0]
+
+
+def phase_zlib_walk(dev, z_chunk, reps):
+    """K6 (zlib walk) against its plain version on host copies of the same
+    CUDA tensors (tolerance 0 on the tape, tlen, records, dist, uni and
+    ok): the non-dense live rows of the 4 MB synth clevel-5 chunk at the
+    default budget, and the generated rows of streams.ZLIB_CARD_CASES
+    with one-byte flips and random rows. The plain loop takes about a
+    millisecond per symbol step on the host, so rows of tens of
+    thousands of events (the chunk's dense rows, the generated
+    Huffman-only rows) are held instead by K6 + K1 at the escalated
+    budget against zlib.decompress. Timed on the chunk's live rows at
+    the escalated budget; bound = (stream bytes + csizes + tape bytes +
+    16 B per record + tlen, dist, uni and ok) / HBM rate."""
+    from cblosc_tpu_torch.gpu import codec_zlib
+    from cblosc_tpu_torch.utils import streams
+
+    rows, cs, n = chunk_rows(dev, z_chunk)
+    rows, cs = live_rows(rows, cs, n)
+    dflt, hi = codec_zlib.default_events(n), codec_zlib.high_events(n)
+    light = torch.nonzero(codec_zlib.fsm_walk(rows, cs, n, dflt)[5]).flatten()
+    l_rows, l_cs = rows[light].contiguous(), cs[light].contiguous()
+    t0 = time.perf_counter()
+    cases = [(l_rows, l_cs, n, dflt)]
+    dense_cases = []
+    for seed, gn, width in streams.ZLIB_CARD_CASES:
+        buf, gcs, kinds = streams.zlib_rows(seed, gn, width, garbage=8)
+        g_rows, g_cs = (torch.from_numpy(buf).to(dev),
+                        torch.from_numpy(gcs).to(dev))
+        cases.append((g_rows, g_cs, gn, codec_zlib.default_events(gn)))
+        nv = len(streams.ZLIB_VALID) + 1             # valid rows, "dense" last
+        dense_cases.append((g_rows[:nv].contiguous(), g_cs[:nv].contiguous(),
+                            gn, codec_zlib.high_events(gn)))
+    err, plain_ms = 0, None
+    for r, c, gn, mev in cases:
+        k = codec_zlib.fsm_walk(r, c, gn, mev)
+        p, ms = _host_plain(codec_zlib._fsm_walk_plain, r, c, gn,
+                            codec_zlib.event_slots(mev))
+        plain_ms = ms if plain_ms is None else plain_ms
+        err = max(err, _maxdiff(_zlib_fields(k), _zlib_fields(p)))
+    check(err == 0, f"zlib_walk kernel differs from its plain version ({err})")
+    held_s = time.perf_counter() - t0
+    replayed = _zlib_replayed(dev, rows, cs, n, hi)
+    for r, c, gn, mev in dense_cases:
+        replayed += _zlib_replayed(dev, r, c, gn, mev)
+    print(f"zlib_walk: held against its plain version on {l_rows.shape[0]} "
+          f"non-dense live rows of the 4 MB synth clevel-5 chunk and "
+          f"{sum(c[0].shape[0] for c in cases[1:])} generated rows "
+          f"({held_s:.1f} s); {replayed} rows (the chunk's {rows.shape[0]} "
+          f"live rows, the generated valid and Huffman-only rows) held by "
+          f"K6 + K1 at the escalated budget against zlib.decompress")
+
+    call = lambda: codec_zlib.fsm_walk(rows, cs, n, hi)  # noqa: E731
+    device_ms, source = _device_ms(dev, call, "::zlib_walk")
+    k = call()
+    N = rows.shape[0]
+    nrec = int((k[2][0] >= 0).sum())
+    lits = int(k[1].sum())
+    held_call = lambda: codec_zlib.fsm_walk(l_rows, l_cs, n, dflt)  # noqa: E731
+    hk = held_call()
+    hN = l_rows.shape[0]
+    r = dict(
+        max_abs_err=err,
+        ms=_ms(dev, call, reps),
+        device_ms=device_ms, device_ms_source=source,
+        call_ms=_ms(dev, call, reps, batch=BATCH),
+        plain_ms=plain_ms, plain_on="host",
+        bound_ms=(int(cs.sum()) + 4 * N + lits + 16 * nrec + 10 * N)
+        / HBM_BYTES_PER_S * 1e3,
+        rows=N, records=nrec, literals=lits, accepted=int(k[5].sum()),
+        budget=hi, dense_rows=N - hN,
+        held_ms=_ms(dev, held_call, reps), held_rows=hN,
+        held_bound_ms=(int(l_cs.sum()) + 4 * hN + int(hk[1].sum())
+                       + 16 * int((hk[2][0] >= 0).sum()) + 10 * hN)
+        / HBM_BYTES_PER_S * 1e3)
+    print(f"kernel zlib_walk inputs: {N} live rows of the host engine's 4 MB "
+          f"synth zlib chunk (clevel 5, out_len {n}) at the escalated budget "
+          f"({hi} events): {lits} literals, {nrec} records, {r['accepted']} "
+          f"rows accepted; {N - hN} rows overflow the default budget "
+          f"({dflt} events). The {hN} others at the default budget: "
+          f"{r['held_ms']:.4f} ms per call alone (CUDA events) against plain "
+          f"{plain_ms:.4f} ms (on the host); bound {r['held_bound_ms']:.6f} ms")
+    return {"zlib_walk": r}
+
+
+def phase_zlib_bench(dev, workset, chunk_bytes, reps, card):
+    """128 MB of synth (sbits 19, typesize 8) in zlib chunks from the host
+    engine at clevel 5; all their rows gathered as the byte API gathers
+    them and decoded by gpu.pipeline.decompress_blocks at the escalated
+    budget (the one the byte API settles on for these chunks), verified
+    equal and timed with CUDA events. The launch counters are zeroed just
+    before the first decode and read just after it."""
+    from cblosc_tpu_torch.format import constants as C
+    from cblosc_tpu_torch.format.header import ChunkHeader
+    from cblosc_tpu_torch.gpu import codec_zlib, kernels, pipeline
+    from cblosc_tpu_torch.utils.timing import synth
+
+    data = synth(workset, 8, 19)
+    t0 = time.perf_counter()
+    chunks = [host_codec_chunk(C.ZLIB, 5, data[i:i + chunk_bytes].tobytes(), 8)
+              for i in range(0, workset, chunk_bytes)]
+    host_s = time.perf_counter() - t0
+    hdr = ChunkHeader.decode(chunks[0])
+    check(hdr.leftover == 0, "zlib bench chunks must hold full blocks only")
+    parts = [chunk_rows(dev, c) for c in chunks]
+    rows = torch.cat([p[0] for p in parts])
+    cs = torch.cat([p[1] for p in parts])
+    neblock = parts[0][2]
+    nsplits = hdr.blocksize // neblock
+    hi = codec_zlib.high_events(neblock)
+
+    def dec():
+        return pipeline.decompress_blocks(rows, cs, neblock, C.SHUFFLE, 8,
+                                          nsplits, C.ZLIB, hi)
+
+    kernels.reset_launches()
+    out, err = dec()
+    launches = dict(kernels.LAUNCHES)
+    if dev.type == "cuda":
+        for name in ("zlib_walk", "expand"):
+            check(launches[name] > 0, f"bench zlib: kernel {name} was not "
+                  "launched")
+    check(not bool(err.any()), "bench zlib: decode reported err")
+    check(torch.equal(out.reshape(-1), torch.from_numpy(data).to(dev)),
+          "bench zlib: decode differs from the input")
+    l_rows, l_cs = live_rows(rows, cs, neblock)
+    over = int((~codec_zlib.fsm_walk(l_rows, l_cs, neblock,
+                                     codec_zlib.default_events(neblock))[5])
+               .sum())
+    td = _ms(dev, dec, reps)
+    cbytes = sum(len(c) for c in chunks)
+    print(json.dumps({
+        "bench": "zlib synth sbits19 ts8", "codec": "zlib", "bytes": workset,
+        "clevel": 5, "typesize": 8, "ratio": workset / cbytes,
+        "host_compress_s": host_s, "decompress_ms": td,
+        "decompress_gbps": workset / td / 1e6, "rows": rows.shape[0],
+        "live_rows": l_rows.shape[0], "rows_over_default_budget": over,
+        "events_budget": hi, "decompress_launches": launches, "card": card,
+        "timer": "call time on the CUDA stream (events; includes host syncs)"
+        if dev.type == "cuda" else "host clock (rehearsal)"}))
+
+
 def _pack_one(stream: bytes, width: int):
     buf = np.zeros((1, width), np.uint8)
     buf[0, :len(stream)] = np.frombuffer(stream, np.uint8)
@@ -615,8 +790,9 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
 
 def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks):
     """The main path through the entry points a user calls.
-    codec_chunks: [(label, data, chunk, walk kernel)] of host-engine LZ4
-    and snappy chunks, each decoded through gpu.host_api on the card."""
+    codec_chunks: [(label, data, chunk, walk kernel)] of host-engine LZ4,
+    snappy and zlib chunks, each decoded through gpu.host_api on the
+    card."""
     import cblosc_tpu_torch as tb
     from cblosc_tpu_torch.core import engine
     from cblosc_tpu_torch.format import constants as C
@@ -773,6 +949,7 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
 
+    import cblosc_tpu_torch as tb
     from cblosc_tpu_torch.format import constants as C
 
     low, host_chunk = host_engine_chunk(chunk_bytes)
@@ -780,8 +957,19 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
     t0 = time.perf_counter()
     lz4_chunk = host_codec_chunk(C.LZ4, 5, sy, 8)
     snappy_chunk = host_codec_chunk(C.SNAPPY, 1, sy, 8)
+    # zlib chunks through the byte API, which writes them on the host
+    # engine as the JAX package does
+    ar = np.arange(chunk_bytes // 4, dtype=np.int32).tobytes()
+    zlib_chunks = {
+        (cl, name): tb.compress_ctx(cl, C.SHUFFLE, ts, d, compressor="zlib",
+                                    device=dev)
+        for cl, name, ts, d in ((1, "synth", 8, sy), (5, "synth", 8, sy),
+                                (9, "synth", 8, sy), (5, "int32 arange", 4, ar))}
     print(f"host-engine chunks of 4 MB synth: LZ4 clevel 5 {len(lz4_chunk)} B, "
-          f"snappy {len(snappy_chunk)} B ({time.perf_counter() - t0:.1f} s)")
+          f"snappy {len(snappy_chunk)} B, zlib clevel 1/5/9 "
+          f"{'/'.join(str(len(zlib_chunks[(c, 'synth')])) for c in (1, 5, 9))} "
+          f"B; zlib int32 arange clevel 5 {len(zlib_chunks[(5, 'int32 arange')])}"
+          f" B ({time.perf_counter() - t0:.1f} s)")
     t_run = time.perf_counter()
 
     def stamp(label):
@@ -791,12 +979,17 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
     stamp("phase 2: expand, walk, decode_one held and timed")
     stats.update(phase_codec_walks(dev, chunk_bytes, snappy_chunk, reps))
     stamp("phase 2: lz4_walk, snappy_walk held and timed")
-    for name in ("lz4_walk", "snappy_walk"):
+    stats.update(phase_zlib_walk(dev, zlib_chunks[(5, "synth")], reps))
+    stamp("phase 2: zlib_walk held and timed")
+    for name in ("lz4_walk", "snappy_walk", "zlib_walk"):
         print_kernel(name, stats[name])
     counts = phase_byte_api(
         dev, chunk_bytes, low, host_chunk,
         [("host-engine LZ4 clevel-5 synth chunk", sy, lz4_chunk, "lz4_walk"),
-         ("host-engine snappy synth chunk", sy, snappy_chunk, "snappy_walk")])
+         ("host-engine snappy synth chunk", sy, snappy_chunk, "snappy_walk")]
+        + [(f"host-engine zlib clevel-{cl} {name} chunk",
+            sy if name == "synth" else ar, c, "zlib_walk")
+           for (cl, name), c in zlib_chunks.items()])
     print(json.dumps({"launches": counts}))
     stamp("phase 3: byte API")
     phase_bench(dev, "synth sbits19 ts8", synth(workset, 8, 19), 8,
@@ -806,7 +999,8 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
                 chunk_bytes, reps, card, need=("walk", "expand"))
     phase_bench(dev, "lz4 synth sbits19 ts8", synth(workset, 8, 19), 8,
                 chunk_bytes, reps, card, need=("lz4_walk",), code=C.LZ4)
-    stamp("phase 4: 128 MB round trips")
+    phase_zlib_bench(dev, workset, chunk_bytes, reps, card)
+    stamp("phase 4: 128 MB round trips and the 128 MB zlib decode")
 
     src = {"expand": ("cblosc_tpu_torch/csrc/expand.cu",
                       "cblosc_tpu/tpu/expand.py:258"),
@@ -817,7 +1011,9 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
            "lz4_walk": ("cblosc_tpu_torch/csrc/lz4_walk.cu",
                         "cblosc_tpu/tpu/codec_lz4.py:338"),
            "snappy_walk": ("cblosc_tpu_torch/csrc/snappy_walk.cu",
-                           "cblosc_tpu/tpu/codec_snappy.py:58")}
+                           "cblosc_tpu/tpu/codec_snappy.py:58"),
+           "zlib_walk": ("cblosc_tpu_torch/csrc/zlib_walk.cu",
+                         "cblosc_tpu/tpu/codec_zlib.py:143")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": counts[name],
