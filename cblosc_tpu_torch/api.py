@@ -10,10 +10,11 @@ full block), as the JAX package's ``backend="tpu"`` path does.
 fit ``destsize`` (the reference's return-0 contract, blosc.h:167-169).
 
 Codecs: blosclz, lz4 and lz4hc compress and decompress on the device;
-snappy and zlib chunks compress on the host engine and decompress on the
-device.
+snappy, zlib and zstd chunks compress on the host engine and decompress
+on the device (zstd blocks above 512 KB decode on the host engine, as in
+the JAX package).
 
-Not ported yet: the zstd codec, compress at clevel >= 5
+Not ported yet: compress at clevel >= 5
 (adaptive-distance mining), getitem, global state, BLOSC_* environment
 overrides and threads.
 """
@@ -56,9 +57,6 @@ def compress_ctx(
     code = C.COMPCODES.get(compressor)
     if code is None:
         raise ValueError(f"unknown compressor '{compressor}'")
-    if code == C.ZSTD:
-        raise NotImplementedError(
-            f"codec '{compressor}' is not ported to the PyTorch package yet")
     ctx = engine.build_context(
         clevel, doshuffle, typesize, nbytes, destsize, code,
         forced_blocksize=blocksize,

@@ -6,8 +6,7 @@ JAX package's device bridge does: the leftover block (different
 geometry, blosc.c:627-633), buffers with no full block, memcpyed chunks
 (clevel 0 or tiny buffers), and chunk decoding when the device path
 declines. Its codecs are the numpy oracles of blosclz, LZ4/LZ4HC and
-snappy and CPython's built-in zlib (ops/codecs/); zstd is not ported yet
-and raises NotImplementedError.
+snappy, CPython's built-in zlib and libzstd through ctypes (ops/codecs/).
 
 A frozen `CompressionContext` carries all per-job state; blocks are laid
 out in block order (deterministic, like the device's exclusive scan).
@@ -23,7 +22,7 @@ import numpy as np
 from ..format import constants as C
 from ..format.header import ChunkHeader, FormatError, make_flags, read_bstarts, validate_header
 from ..ops import filters_np
-from ..ops.codecs import blosclz, lz4, snappy, zlib_
+from ..ops.codecs import blosclz, lz4, snappy, zlib_, zstd_
 from . import policy
 
 
@@ -50,8 +49,8 @@ class CompressionContext:
 
 def _codec(compcode: int):
     """(compress, decompress) over one split stream, as the JAX package's
-    codec registry wraps them (models/registry.py). zstd exists in the
-    format but not in this package yet."""
+    codec registry wraps them (models/registry.py). zstd raises where no
+    libzstd is installed, where the JAX registry reports it unavailable."""
     if compcode == C.BLOSCLZ:
         return (lambda data, maxout, clevel, split:
                 blosclz.compress(clevel, data, maxout, split),
@@ -72,10 +71,10 @@ def _codec(compcode: int):
         return (lambda data, maxout, clevel, split:
                 zlib_.compress(data, maxout, clevel),
                 zlib_.decompress)
-    if compcode in C.COMPNAMES:
-        raise NotImplementedError(
-            f"codec '{C.COMPNAMES[compcode]}' is not ported to the "
-            "PyTorch package yet")
+    if compcode == C.ZSTD:
+        return (lambda data, maxout, clevel, split:
+                zstd_.compress(data, maxout, clevel),
+                zstd_.decompress)
     raise ValueError(f"unknown compressor code {compcode}")
 
 

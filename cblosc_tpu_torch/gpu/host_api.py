@@ -10,15 +10,14 @@ byte-for-byte the chunk the JAX package writes, a conforming chunk
 API takes the host engine, exactly where the JAX bridge does: memcpyed
 chunks, no full block, a blocksize that is not a multiple of the split
 count, a codec without a device encoder (snappy and zlib compress on
-the host), and LZ4, snappy or zlib chunks whose streams the
+the host), and LZ4, snappy, zlib or zstd chunks whose streams the
 device walk rejects even with the escalated budget (foreign geometry;
-for zlib also stored blocks and preset dictionaries). One more case
-goes to the host here: LZ4 splits wider than the device encoder's int32
-sort keys allow (about 2 MiB, only with a forced blocksize), which the
-JAX encoder would write corrupt (gpu/pipeline.encoder decides). zstd
-raises NotImplementedError: the JAX package decodes it on its device,
-this one not yet. Nothing goes to the host because a card or a kernel
-is missing.
+for zlib also stored blocks and preset dictionaries; for zstd blocks
+above 512 KB, decode_cap). One more case goes to the host here: LZ4
+splits wider than the device encoder's int32 sort keys allow (about 2
+MiB, only with a forced blocksize), which the JAX encoder would write
+corrupt (gpu/pipeline.encoder decides). Nothing goes to the host because
+a card or a kernel is missing.
 """
 
 from __future__ import annotations
@@ -125,15 +124,17 @@ def _fallback_memcpy(ctx, src: np.ndarray) -> bytes:
 
 def _escalated_budget(neblock: int, compcode: int) -> int:
     """Retry budget for token-dense LZ4 and snappy chunks (short matches
-    every few bytes: records) and event-dense zlib chunks (events); 0
-    for blosclz, whose overflow rows decode with the generic decoder
-    (K3)."""
-    from . import codec_zlib, structured
+    every few bytes: records) and event-dense zlib and zstd chunks
+    (events); 0 for blosclz, whose overflow rows decode with the generic
+    decoder (K3)."""
+    from . import codec_zlib, codec_zstd, structured
 
     if compcode == C.BLOSCLZ:
         return 0
     if compcode == C.ZLIB:
         return codec_zlib.high_events(neblock)
+    if compcode == C.ZSTD:
+        return codec_zstd.high_events(neblock)
     return structured.high_records(neblock)
 
 
@@ -175,10 +176,6 @@ def decompress_chunk(chunk_bytes, destsize: int | None,
         return b""
     if hdr.memcpyed:
         return None
-    if hdr.compcode not in pipeline.DEVICE_DECODE_CODECS:     # zstd
-        raise NotImplementedError(
-            f"codec '{hdr.compname}' is not ported to the PyTorch package "
-            "yet")
     nblocks, leftover = hdr.nblocks, hdr.leftover
     nfull = nblocks - (1 if leftover else 0)
     if nfull == 0:

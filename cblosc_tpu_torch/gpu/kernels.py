@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> source file
 SOURCES = {"expand": "expand.cu", "walk": "walk.cu", "decode_one": "decode.cu",
            "lz4_walk": "lz4_walk.cu", "snappy_walk": "snappy_walk.cu",
-           "zlib_walk": "zlib_walk.cu"}
+           "zlib_walk": "zlib_walk.cu", "zstd_walk": "zstd_walk.cu"}
 
 LAUNCHES = {name: 0 for name in SOURCES}
 
@@ -50,6 +50,10 @@ _SIGS = {
     "snappy_walk": ("snappy_walk_launch", _WALK),
     # the zlib walk also writes the literal tape and its length
     "zlib_walk": ("zlib_walk_launch", _WALK[:6] + [_P, _P] + _WALK[6:]),
+    # the zstd walk: slots, N, W, csizes, out_len, E, RC, tape, tlen, kind,
+    # arg, dst, len, ok, stream
+    "zstd_walk": ("zstd_walk_launch", [_P, _I, _I, _P, _I, _I, _I, _P, _P,
+                                       _P, _P, _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

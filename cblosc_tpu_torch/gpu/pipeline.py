@@ -13,16 +13,16 @@ the reference's block engine hot loop (blosc_c / blosc_d, blosc/blosc.c:
 and the serialized layout is an exclusive scan over the csizes
 (deterministic, replacing the reference's arrival-order mutex
 reservation, blosc.c:1843-1861). BloscLZ and LZ4/LZ4HC encode and decode
-here; snappy and zlib decode (their chunks are written by the host
-engine, as in the JAX package); zstd is not ported yet.
+here; snappy, zlib and zstd decode (their chunks are written by the host
+engine, as in the JAX package).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import (codec, codec_lz4, codec_snappy, codec_zlib, filters,
-               structured)
+from . import (codec, codec_lz4, codec_snappy, codec_zlib, codec_zstd,
+               filters, structured)
 from ..format import constants as C
 
 I32 = torch.int32
@@ -35,9 +35,9 @@ _ENCODE_GROUP_BYTES = 64 << 20
 
 # compcodes with a device encoder (LZ4HC chunks carry the LZ4 wire format)
 DEVICE_CODECS = (C.BLOSCLZ, C.LZ4, C.LZ4HC)
-# and with a device decoder: snappy and zlib chunks, written by the host
-# engine, decode on the device too
-DEVICE_DECODE_CODECS = DEVICE_CODECS + (C.SNAPPY, C.ZLIB)
+# and with a device decoder: snappy, zlib and zstd chunks, written by the
+# host engine, decode on the device too
+DEVICE_DECODE_CODECS = DEVICE_CODECS + (C.SNAPPY, C.ZLIB, C.ZSTD)
 
 
 def encoder(compcode: int, neblock: int):
@@ -64,8 +64,9 @@ def _decoder(compcode: int):
         return codec_snappy.decode
     if compcode == C.ZLIB:
         return codec_zlib.decode
-    raise NotImplementedError(
-        f"compcode {compcode}: no device decoder in the PyTorch package yet")
+    if compcode == C.ZSTD:
+        return codec_zstd.decode
+    raise ValueError(f"compcode {compcode}: no device decoder")
 
 
 def _encode_grouped(streams: torch.Tensor, mod, min_cratio_x100: int,
@@ -142,8 +143,8 @@ def decompress_blocks(
     the compcode's codec (or raw bytes, see below), zero past its csize.
     Returns (blocks uint8 (nblocks, nsplits*neblock), err bool (rows,)).
     maxrec_hint widens the LZ4/snappy walk's record budget or the zlib
-    walk's event budget (the byte API's retry for token-dense and
-    event-dense chunks). zstd raises NotImplementedError.
+    and zstd walks' event budget (the byte API's retry for token-dense
+    and event-dense chunks).
     """
     dec = _decoder(compcode)
     rows = slots.shape[0]
@@ -173,9 +174,10 @@ def decompress_blocks(
 
 
 def decode_slot_width(neblock: int, compcode: int = C.BLOSCLZ) -> int:
-    """Gather width covering any conforming split stream: blosclz, LZ4 and
-    zlib splits never exceed neblock (their maxout is neblock; bigger is
-    stored raw), a compressed snappy split may reach 32 + n + n/6."""
+    """Gather width covering any conforming split stream: blosclz, LZ4,
+    zlib and zstd splits never exceed neblock (their maxout is neblock;
+    bigger is stored raw), a compressed snappy split may reach
+    32 + n + n/6."""
     if compcode == C.SNAPPY:
         return neblock + neblock // 6 + 64
     return neblock + 64

@@ -12,9 +12,11 @@ one steady call each of ``gpu.pipeline.compress_blocks`` and
 ``decompress_blocks``; then one steady byte-API ``decompress_ctx`` each
 of two chunks the host engine writes: a clevel-9 blosclz chunk (256 KB
 of low-entropy bytes, the token-dense split the generic decoder takes)
-and a clevel-5 zlib chunk of 4 MB synth (128 KB splits; the zlib walk
+a clevel-5 zlib chunk of 4 MB synth (128 KB splits; the zlib walk
 runs twice, the default budget then the escalated one, as the byte API
-retries). It prints one JSON line
+retries) and a clevel-5 zstd chunk of 4 MB synth (16 unsplit 256 KB
+blocks, each one zstd frame: the zstd walk and the expand kernel, once
+each). It prints one JSON line
 per call: the host wall time of the call (ending in a synchronize), the
 summed device time of its kernels, their share of the wall time (the
 device-busy share; the rest is idle, waiting on the host), and the top
@@ -148,6 +150,11 @@ def main() -> None:
     chunk = engine.compress_chunk(ctx, z)
     r = _profile(lambda: api.decompress_ctx(chunk, device=dev),
                  "decompress_ctx host-engine zlib clevel-5 synth 4 MB", card)
+    print(json.dumps(r))
+    ctx = engine.build_context(5, C.SHUFFLE, 8, len(z), len(z) + 16, C.ZSTD)
+    chunk = engine.compress_chunk(ctx, z)
+    r = _profile(lambda: api.decompress_ctx(chunk, device=dev),
+                 "decompress_ctx host-engine zstd clevel-5 synth 4 MB", card)
     print(json.dumps(r))
 
 

@@ -879,3 +879,268 @@ def zlib_rows(seed: int, out_len: int, width: int, garbage: int = 0):
         kinds += ("flip",) * len(valid) + ("garbage",) * garbage
     buf, cs = _pack(rows, width)
     return buf, cs, kinds
+
+
+# ---------------------------------------------------------------------------
+# zstd frames (blosc/blosc.c:498-522 wraps the library's one-shot calls)
+# ---------------------------------------------------------------------------
+#
+# Valid frames, each decoding to out_len bytes (ZSTD_VALID): zeros, a raw
+# block (random bytes), raw literals (a 64-byte tile), the same frame with
+# its literal section rewritten as RLE literals (libzstd writes them only
+# where a block's literals are one repeated byte), Huffman literals (16
+# spaced byte values) at levels 1 and 19, a short single-stream Huffman
+# section, runs and a ramp, shuffled-typed data at level 3, and
+# multi-block frames (ZSTD_compress2 with a 1 KB window, so every 1 KB is
+# a block: treeless literals and repeated sequence tables) at levels 1,
+# 3 and 19, the last with a content checksum. Between them they cover raw, RLE and
+# compressed blocks; raw, RLE and Huffman literals, 1- and 4-stream, with
+# direct and FSE-coded weights; predefined, RLE, FSE and repeat sequence
+# tables; repeat offsets (zstd_features names what a frame holds).
+# "shuffled": the bench data byte-shuffled at level 9 (clevel 5), whose
+# match-length table holds a zero run of more than 24 counts, which the
+# JAX machine rejects (8 repeat flags at most) and the port reads.
+# "dense": 4-bit random bytes, one Huffman literal per output byte, which
+# the JAX machine's default budget (its slot count) rejects.
+# Error rows (ZSTD_BAD), which every walk must reject: a bad magic, the
+# dictionary-ID flag, the reserved bit, block type 3, a truncated frame,
+# a frame longer than out_len.
+
+ZSTD_VALID = ("zeros", "raw_block", "raw_lits", "rle_lits", "huf_l1",
+              "huf_l19", "huf_1s", "runs", "ramp", "typed_l3", "shuffled",
+              "multi_huf", "multi_l3", "multi_l19_ck")
+ZSTD_BAD = ("magic", "dict", "reserved", "btype3", "truncated", "long")
+ZSTD_KINDS = ZSTD_VALID + ("dense",) + ZSTD_BAD
+
+# (seed, out_len, row width): the width is the pipeline's gather width,
+# out_len + 64. One shape for the CPU tests (the JAX machine compiles once
+# per shape); the card adds 32 KB and 128 KB rows
+ZSTD_CASES = ((51, 8192, 8256),)
+ZSTD_CARD_CASES = ZSTD_CASES + ((52, 32768, 32832), (53, 131072, 131136))
+
+
+def zstd_data(rng, kind: str, n: int) -> bytes:
+    """The bytes of a ZSTD_VALID (or "dense") kind."""
+    if kind == "zeros":
+        return bytes(n)
+    if kind == "raw_block":
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    if kind in ("raw_lits", "rle_lits"):
+        return np.tile(rng.integers(0, 256, 64, dtype=np.uint8),
+                       n // 64 + 1)[:n].tobytes()
+    if kind in ("huf_l1", "huf_l19", "multi_huf"):
+        return (rng.integers(0, 16, n, dtype=np.uint8) * 16).tobytes()
+    if kind == "huf_1s":
+        return (rng.integers(65, 69, 200, dtype=np.uint8).tobytes()
+                + bytes(n - 200))
+    if kind == "runs":
+        return np.repeat(rng.integers(0, 9, n // 16 + 1).astype(np.uint8),
+                         16)[:n].tobytes()
+    if kind == "ramp":
+        return (np.arange(n) % 251).astype(np.uint8).tobytes()
+    if kind == "dense":
+        return rng.integers(0, 16, n, dtype=np.uint8).tobytes()
+    if kind == "shuffled":
+        from ..ops.filters_np import shuffle
+        from .timing import synth
+
+        return bytes(shuffle(8, synth(n, 8, 19, seed=int(rng.integers(1 << 16)))))
+    # shuffled typed data: slow random walks of int32 values, byte-shuffled
+    v = np.cumsum(rng.integers(-3, 4, n // 4 + 1)).astype(np.int32)
+    b = v.view(np.uint8)[:n // 4 * 4].reshape(-1, 4).T.reshape(-1)
+    return (zlib_data(rng, n - b.size) + b.tobytes())[:n]
+
+
+def zstd_valid(rng, out_len: int, kind: str) -> bytes:
+    from ..ops.codecs import zstd_
+
+    data = zstd_data(rng, kind, out_len)
+    if kind.startswith("multi"):
+        level = 19 if "l19" in kind else 3 if "l3" in kind else 1
+        return zstd_.compress2_frame(data, level, 10, kind.endswith("_ck"))
+    level = {"huf_l1": 1, "huf_l19": 19, "huf_1s": 3, "runs": 3, "ramp": 9,
+             "typed_l3": 3, "shuffled": 9, "dense": 3}.get(kind, 1)
+    frame = zstd_.frame(data, level)
+    return _rle_literals(frame) if kind == "rle_lits" else frame
+
+
+def _rle_literals(frame: bytes) -> bytes:
+    """The frame with the raw literal section of its first block, of n >= 2
+    bytes, rewritten as an RLE section of n copies of 0x5A (a valid frame
+    of the same length that decodes to other bytes)."""
+    pos = zstd_block_starts(frame)[0]
+    bh = int.from_bytes(frame[pos:pos + 3], "little")
+    p = pos + 3
+    b0 = frame[p]
+    sf = (b0 >> 2) & 3
+    if (bh >> 1) & 3 != 2 or b0 & 3 != 0 or sf != 1:
+        raise ValueError("the first block has no 2-byte raw literals header")
+    n = (b0 >> 4) | (frame[p + 1] << 4)
+    rle = bytes([1 | (1 << 2) | ((n & 15) << 4), n >> 4, 0x5A])
+    size = (bh >> 3) - (2 + n) + len(rle)
+    hdr = ((size << 3) | (bh & 7)).to_bytes(3, "little")
+    return frame[:pos] + hdr + rle + frame[p + 2 + n:]
+
+
+def zstd_bad(rng, out_len: int, kind: str) -> tuple:
+    """(stream, csize) of a ZSTD_BAD kind."""
+    from ..ops.codecs import zstd_
+
+    good = bytearray(zstd_valid(rng, out_len, "typed_l3"))
+    if kind == "magic":
+        good[0] ^= 0xFF
+    elif kind == "dict":
+        good[4] |= 1
+    elif kind == "reserved":
+        good[4] |= 8
+    elif kind == "btype3":
+        good[zstd_block_starts(bytes(good))[0]] |= 6
+    elif kind == "truncated":
+        return bytes(good), len(good) - 5
+    elif kind == "long":
+        good = bytearray(zstd_.frame(zstd_data(rng, "typed_l3", out_len + 100),
+                                     3))
+    return bytes(good), len(good)
+
+
+def zstd_block_starts(frame: bytes) -> list:
+    """Byte offsets of a frame's block headers."""
+    fhd = frame[4]
+    single, did, fcs = (fhd >> 5) & 1, fhd & 3, fhd >> 6
+    pos = 5 + (1 - single) + (0, 1, 2, 4)[did] + (single, 2, 4, 8)[fcs]
+    out = []
+    while True:
+        out.append(pos)
+        bh = int.from_bytes(frame[pos:pos + 3], "little")
+        pos += 3 + (1 if (bh >> 1) & 3 == 1 else bh >> 3)
+        if bh & 1:
+            return out
+
+
+def _ncount_flag_run(buf: bytes, pos: int, max_symbol: int):
+    """(longest run of 2-bit zero-run flags, bytes) of the FSE count
+    description at pos (RFC 8878 4.1.1, read as zstd_ref.read_ncount
+    reads it)."""
+    bit = pos * 8
+
+    def read(n):
+        nonlocal bit
+        v = 0
+        for i in range(n):
+            b = bit + i
+            v |= ((buf[b >> 3] >> (b & 7)) & 1) << i if b >> 3 < len(buf) else 0
+        bit += n
+        return v
+
+    log = read(4) + 5
+    remaining, threshold, nbits = (1 << log) + 1, 1 << log, log + 1
+    n, prev0, worst = 0, False, 0
+    while remaining > 1 and n <= max_symbol:
+        if prev0:
+            run = 1
+            while True:
+                rep = read(2)
+                n += rep
+                if rep < 3:
+                    break
+                run += 1
+            worst = max(worst, run)
+            prev0 = False
+            continue
+        maxv = 2 * threshold - 1 - remaining
+        v = read(nbits - 1)
+        if v >= maxv:
+            v |= read(1) << (nbits - 1)
+            v = v if v < threshold else v - maxv
+        count = v - 1
+        remaining -= abs(count)
+        n += 1
+        prev0 = count == 0
+        while remaining < threshold and threshold > 1:
+            nbits -= 1
+            threshold >>= 1
+    return worst, (bit + 7) // 8 - pos
+
+
+def zstd_features(frame: bytes) -> set:
+    """What a frame holds: block types ("raw_block", "rle_block",
+    "cmp_block"), literal types ("raw_lits", "rle_lits", "huf_1s",
+    "huf_4s", "treeless"), Huffman weights ("w_direct", "w_fse"),
+    sequence table modes ("seq_predef", "seq_rle", "seq_fse",
+    "seq_repeat"), "multi_block", "checksum", and "zero_run_flags_9" when
+    an FSE count description holds a zero run of 9 or more 2-bit repeat
+    flags (more than 24 zero counts), which the JAX machine rejects."""
+    out = set()
+    starts = zstd_block_starts(frame)
+    if len(starts) > 1:
+        out.add("multi_block")
+    if frame[4] & 4:
+        out.add("checksum")
+    for pos in starts:
+        bh = int.from_bytes(frame[pos:pos + 3], "little")
+        btype = (bh >> 1) & 3
+        out.add(("raw_block", "rle_block", "cmp_block")[btype])
+        if btype != 2:
+            continue
+        p = pos + 3
+        b0 = frame[p]
+        lt, sf = b0 & 3, (b0 >> 2) & 3
+        if lt <= 1:
+            out.add(("raw_lits", "rle_lits")[lt])
+            h = 1 if (sf & 1) == 0 else 2 if sf == 1 else 3
+            rs = (b0 >> 3 if h == 1 else
+                  int.from_bytes(frame[p:p + h], "little") >> 4)
+            p += h + (rs if lt == 0 else 1)
+        else:
+            h = (3, 3, 4, 5)[sf]
+            v = int.from_bytes(frame[p:p + h], "little") >> 4
+            csz = v >> (10, 10, 14, 18)[sf]
+            out.add("huf_1s" if sf == 0 else "huf_4s")
+            if lt == 3:
+                out.add("treeless")
+            elif frame[p + h] >= 128:
+                out.add("w_direct")
+            else:
+                out.add("w_fse")
+                if _ncount_flag_run(frame, p + h + 1, 255)[0] > 8:
+                    out.add("zero_run_flags_9")
+            p += h + csz
+        n0 = frame[p]
+        if n0 == 0:
+            continue
+        p += 1 if n0 < 128 else 2 if n0 < 255 else 3
+        modes = frame[p]
+        p += 1
+        for sh, maxsym in ((6, 35), (4, 31), (2, 52)):
+            mode = (modes >> sh) & 3
+            out.add(("seq_predef", "seq_rle", "seq_fse", "seq_repeat")[mode])
+            if mode == 1:
+                p += 1
+            elif mode == 2:
+                run, used = _ncount_flag_run(frame, p, maxsym)
+                if run > 8:
+                    out.add("zero_run_flags_9")
+                p += used
+    return out
+
+
+def zstd_rows(seed: int, out_len: int, width: int, garbage: int = 0):
+    """(buf uint8 (N, width), csizes int32 (N,), kinds): one row of each
+    of ZSTD_KINDS, in that order, zero past csize; with garbage > 0 then
+    a one-byte corruption of each valid row ("flip") and `garbage`
+    random rows, half of them behind a valid frame header."""
+    rng = np.random.default_rng(seed)
+    valid = [zstd_valid(rng, out_len, k) for k in ZSTD_VALID + ("dense",)]
+    rows = [(s, len(s)) for s in valid]
+    rows += [zstd_bad(rng, out_len, k) for k in ZSTD_BAD]
+    kinds = ZSTD_KINDS
+    if garbage:
+        extra = _corrupt_and_garbage(rng, valid, width, garbage)
+        for i in range(len(valid), len(extra), 2):
+            b, n = extra[i]
+            hdr = valid[0][:6]
+            extra[i] = ((hdr + b)[:width], min(n + 6, width))
+        rows += extra
+        kinds += ("flip",) * len(valid) + ("garbage",) * garbage
+    buf, cs = _pack(rows, width)
+    return buf, cs, kinds

@@ -37,13 +37,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      dense rows, the generated Huffman-only rows) are held by
      their K6 + K1 output at the escalated budget against
      zlib.decompress. It is timed on the chunk's 24 live rows at the
-     escalated budget, the one the byte API settles on;
+     escalated budget, the one the byte API settles on. The zstd walk
+     (zstd_walk) is held, tape and records included, on the generated
+     zstd frames of streams.ZSTD_CARD_CASES up to 32 KB (every frame
+     feature, corruptions, one-byte flips, random rows) and on a few
+     live rows of the 4 MB synth zstd chunks at clevels 1 and 5; K7 + K1
+     replay every live row of those two chunks, and every valid
+     generated frame up to 128 KB, to libzstd's bytes. It is timed on the
+     clevel-5 chunk's 16 live rows at the default budget;
   3. the main path: byte-API round trips (compress_ctx/decompress_ctx)
      on 4 MB buffers at clevel 1 (blosclz, lz4, lz4hc) plus a clevel-9
-     blosclz, a clevel-5 LZ4, a snappy chunk and zlib chunks (synth at
-     clevels 1, 5 and 9, int32 arange at clevel 5) from the host engine
-     decoded on the card (gpu.host_api.decompress_chunk must return
-     them: no host fallback); every launch counter is zeroed just before
+     blosclz, a clevel-5 LZ4, a snappy chunk, zlib chunks and zstd
+     chunks (synth at clevels 1, 5 and 9, int32 arange at clevel 5) from
+     the host engine decoded on the card (gpu.host_api.decompress_chunk
+     must return them: no host fallback; but the clevel-9 zstd chunk,
+     whose 1 MB blocks are above decode_cap, goes to the host engine, as
+     in the JAX package, and a line says so); every launch counter is zeroed just before
      each decode and read just after it, the phase's launches are their
      sum, and each kernel must have launched; then the
      clevel-9 chunk's decode is timed warm (CUDA events, median of 5);
@@ -57,6 +66,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (host time printed as such), all their rows decoded by
      decompress_blocks at the escalated budget, verified and timed the
      same way, with the number of rows that overflow the default budget;
+     and 128 MB of synth in zstd chunks from the host engine at clevels
+     5 (256 KB blocks) and 1 (32 KB blocks), all their rows decoded by
+     decompress_blocks at the default budget, verified and timed the
+     same way, with the rows over the default budget and the rows the
+     walk rejects even at the escalated one (the byte API would send
+     them to the host);
   5. the kernels line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package, and exits
@@ -647,6 +662,178 @@ def phase_zlib_bench(dev, workset, chunk_bytes, reps, card):
         if dev.type == "cuda" else "host clock (rehearsal)"}))
 
 
+def _zstd_fields(walk):
+    """A zstd walk's outputs as one flat tuple of tensors."""
+    tape, tlen, rf, ok = walk
+    return (tape, tlen, *rf, ok)
+
+
+def _zstd_replayed(dev, rows, cs, n, budget=0) -> int:
+    """K7 + K1 (codec_zstd.decode) on every row: each must decode, to
+    libzstd's ZSTD_decompress bytes of its frame. Returns the rows."""
+    from cblosc_tpu_torch.gpu import codec_zstd
+    from cblosc_tpu_torch.ops.codecs import zstd_
+
+    out, _, err = codec_zstd.decode(rows, cs, n, budget)
+    check(not bool(err.any()), "a valid zstd row did not decode on the card")
+    out, rows_h, cs_h = out.cpu().numpy(), rows.cpu().numpy(), cs.cpu().numpy()
+    for i in range(rows_h.shape[0]):
+        want = zstd_.decompress(rows_h[i, :cs_h[i]].tobytes(), n)
+        check(out[i].tobytes() == want,
+              "K7 + K1 differ from libzstd on a zstd row")
+    return rows_h.shape[0]
+
+
+def phase_zstd_walk(dev, z1_chunk, z5_chunk, reps):
+    """K7 (zstd walk) against its plain version on host copies of the same
+    CUDA tensors (tolerance 0 on the tape, tlen, records and ok) at the
+    default budget: the generated frames of streams.ZSTD_CARD_CASES up to
+    32 KB with one-byte flips and random rows, 4 live rows of the 4 MB
+    synth clevel-1 chunk (32 KB blocks, Huffman literals) and 2 of the
+    clevel-5 chunk (256 KB blocks, about 6,600 sequences each: the plain
+    loop takes one sequence a step). K7 + K1 then replay every live row
+    of both chunks and every valid generated frame (128 KB ones too) to
+    libzstd's bytes. Timed on the clevel-5 chunk's live rows at the
+    default budget; bound = (stream bytes + csizes + tape bytes + 16 B per
+    record + tlen and ok) / HBM rate."""
+    from cblosc_tpu_torch.gpu import codec_zstd
+    from cblosc_tpu_torch.utils import streams
+
+    r5, c5, n5 = chunk_rows(dev, z5_chunk)
+    r5, c5 = live_rows(r5, c5, n5)
+    r1, c1, n1 = chunk_rows(dev, z1_chunk)
+    r1, c1 = live_rows(r1, c1, n1)
+    t0 = time.perf_counter()
+    cases = [(r1[:4].contiguous(), c1[:4].contiguous(), n1),
+             (r5[:2].contiguous(), c5[:2].contiguous(), n5)]
+    valid = []
+    for seed, gn, width in streams.ZSTD_CARD_CASES:
+        buf, gcs, kinds = streams.zstd_rows(seed, gn, width, garbage=8)
+        g_rows, g_cs = (torch.from_numpy(buf).to(dev),
+                        torch.from_numpy(gcs).to(dev))
+        if gn <= 32768:
+            cases.append((g_rows, g_cs, gn))
+        nv = len(streams.ZSTD_VALID) + 1             # valid rows, "dense" last
+        valid.append((g_rows[:nv].contiguous(), g_cs[:nv].contiguous(), gn))
+    err, plain_ms, held = 0, {}, 0
+    for r, c, gn in cases:
+        mev = codec_zstd.default_events(gn)
+        k = codec_zstd.fsm_walk(r, c, gn, mev)
+        p, ms = _host_plain(codec_zstd._fsm_walk_plain, r, c, gn,
+                            codec_zstd.event_slots(mev))
+        plain_ms.setdefault(gn, ms)
+        held += r.shape[0]
+        err = max(err, _maxdiff(_zstd_fields(k), _zstd_fields(p)))
+    check(err == 0, f"zstd_walk kernel differs from its plain version ({err})")
+    held_s = time.perf_counter() - t0
+    replayed = _zstd_replayed(dev, r5, c5, n5) + _zstd_replayed(dev, r1, c1, n1)
+    for r, c, gn in valid:
+        replayed += _zstd_replayed(dev, r, c, gn)
+    print(f"zstd_walk: held against its plain version on {held} rows (4 live "
+          f"rows of the 4 MB synth clevel-1 chunk, 2 of the clevel-5 chunk, "
+          f"the generated rows up to 32 KB; {held_s:.1f} s); {replayed} rows "
+          f"(all {r1.shape[0]} + {r5.shape[0]} live rows of the two chunks, "
+          "the valid generated frames up to 128 KB) held by K7 + K1 against "
+          "libzstd")
+
+    dflt = codec_zstd.default_events(n5)
+    call = lambda: codec_zstd.fsm_walk(r5, c5, n5, dflt)  # noqa: E731
+    device_ms, source = _device_ms(dev, call, "::zstd_walk")
+    k = call()
+    N = r5.shape[0]
+    nrec = int((k[2][0] >= 0).sum())
+    lits = int(k[1].sum())
+    accepted = int(k[3].sum())
+    check(accepted == N, "the clevel-5 chunk's rows must walk at the default "
+          "budget")
+    r = dict(
+        max_abs_err=err,
+        ms=_ms(dev, call, reps),
+        device_ms=device_ms, device_ms_source=source,
+        call_ms=_ms(dev, call, reps, batch=BATCH),
+        plain_ms=plain_ms[n5], plain_on="host", plain_rows=2,
+        bound_ms=(int(c5.sum()) + 4 * N + lits + 16 * nrec + 5 * N)
+        / HBM_BYTES_PER_S * 1e3,
+        rows=N, records=nrec, tape_bytes=lits, accepted=accepted,
+        budget=dflt)
+    print(f"kernel zstd_walk inputs: {N} live rows of the host engine's 4 MB "
+          f"synth zstd chunk (clevel 5, out_len {n5}) at the default budget "
+          f"({dflt} events): {lits} tape bytes, {nrec} records, {accepted} rows "
+          f"accepted; plain {plain_ms[n5]:.1f} ms for 2 of them, "
+          f"{plain_ms[n1]:.1f} ms for 4 clevel-1 rows (on the host)")
+    return {"zstd_walk": r}
+
+
+def phase_zstd_bench(dev, workset, chunk_bytes, reps, card, clevel):
+    """128 MB of synth (sbits 19, typesize 8) in zstd chunks from the host
+    engine at `clevel`; all their rows gathered as the byte API gathers
+    them and decoded by gpu.pipeline.decompress_blocks at the default
+    budget, verified equal and timed with CUDA events. The launch
+    counters are zeroed just before the first decode and read just after
+    it."""
+    from cblosc_tpu_torch.format import constants as C
+    from cblosc_tpu_torch.format.header import ChunkHeader
+    from cblosc_tpu_torch.gpu import codec_zstd, kernels, pipeline
+    from cblosc_tpu_torch.utils import streams
+    from cblosc_tpu_torch.utils.timing import synth
+
+    data = synth(workset, 8, 19)
+    t0 = time.perf_counter()
+    chunks = [host_codec_chunk(C.ZSTD, clevel,
+                               data[i:i + chunk_bytes].tobytes(), 8)
+              for i in range(0, workset, chunk_bytes)]
+    host_s = time.perf_counter() - t0
+    hdr = ChunkHeader.decode(chunks[0])
+    check(hdr.leftover == 0, "zstd bench chunks must hold full blocks only")
+    parts = [chunk_rows(dev, c) for c in chunks]
+    rows = torch.cat([p[0] for p in parts])
+    cs = torch.cat([p[1] for p in parts])
+    neblock = parts[0][2]
+    nsplits = hdr.blocksize // neblock
+
+    def dec():
+        return pipeline.decompress_blocks(rows, cs, neblock, C.SHUFFLE, 8,
+                                          nsplits, C.ZSTD)
+
+    kernels.reset_launches()
+    out, err = dec()
+    launches = dict(kernels.LAUNCHES)
+    if dev.type == "cuda":
+        for name in ("zstd_walk", "expand"):
+            check(launches[name] > 0, f"bench zstd clevel {clevel}: kernel "
+                  f"{name} was not launched")
+    check(not bool(err.any()), f"bench zstd clevel {clevel}: decode reported "
+          "err")
+    check(torch.equal(out.reshape(-1), torch.from_numpy(data).to(dev)),
+          f"bench zstd clevel {clevel}: decode differs from the input")
+    l_rows, l_cs = live_rows(rows, cs, neblock)
+    over = int((~codec_zstd.fsm_walk(l_rows, l_cs, neblock,
+                                     codec_zstd.default_events(neblock))[3])
+               .sum())
+    host = int((~codec_zstd.fsm_walk(l_rows, l_cs, neblock,
+                                     codec_zstd.high_events(neblock))[3])
+               .sum())
+    # rows the JAX machine rejects for a zero run of more than 8 repeat
+    # flags in a count description (ROADMAP §3); the port decodes them
+    lrh, lch = l_rows.cpu().numpy(), l_cs.cpu().numpy()
+    long_runs = sum("zero_run_flags_9" in streams.zstd_features(
+        lrh[i, :lch[i]].tobytes()) for i in range(lrh.shape[0]))
+    td = _ms(dev, dec, reps)
+    cbytes = sum(len(c) for c in chunks)
+    print(json.dumps({
+        "bench": "zstd synth sbits19 ts8", "codec": "zstd", "bytes": workset,
+        "clevel": clevel, "typesize": 8, "blocksize": hdr.blocksize,
+        "ratio": workset / cbytes, "host_compress_s": host_s,
+        "decompress_ms": td, "decompress_gbps": workset / td / 1e6,
+        "rows": rows.shape[0], "live_rows": l_rows.shape[0],
+        "rows_over_default_budget": over, "rows_to_host": host,
+        "rows_with_long_zero_runs": long_runs,
+        "events_budget": codec_zstd.default_events(neblock),
+        "decompress_launches": launches, "card": card,
+        "timer": "call time on the CUDA stream (events; includes host syncs)"
+        if dev.type == "cuda" else "host clock (rehearsal)"}))
+
+
 def _pack_one(stream: bytes, width: int):
     buf = np.zeros((1, width), np.uint8)
     buf[0, :len(stream)] = np.frombuffer(stream, np.uint8)
@@ -788,11 +975,14 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
     return out
 
 
-def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks):
+def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks,
+                   host_only=()):
     """The main path through the entry points a user calls.
     codec_chunks: [(label, data, chunk, walk kernel)] of host-engine LZ4,
-    snappy and zlib chunks, each decoded through gpu.host_api on the
-    card."""
+    snappy, zlib and zstd chunks, each decoded through gpu.host_api on
+    the card; host_only: [(label, data, chunk)] that gpu.host_api must
+    decline (the JAX package's bridge declines them too), decoded by the
+    byte API on the host engine."""
     import cblosc_tpu_torch as tb
     from cblosc_tpu_torch.core import engine
     from cblosc_tpu_torch.format import constants as C
@@ -868,6 +1058,15 @@ def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks):
         print(f"byte api {label}: {len(data)} B <- {len(chunk)} B decoded "
               f"on {dev.type} in {td:.3f} s (host clock, first call); "
               f"decompress launches {delta}")
+    for label, data, chunk in host_only:
+        r, delta = counted(lambda: host_api.decompress_chunk(chunk, None, dev))
+        check(r is None, f"{label}: the device path must decline it")
+        check(tb.decompress_ctx(chunk, device=dev) == data,
+              f"{label}: byte-API decode differs")
+        print(f"byte api {label}: {len(data)} B <- {len(chunk)} B; its blocks "
+              "are above decode_cap, so gpu.host_api declines it (as the JAX "
+              "package's bridge does) and the host engine decodes it; "
+              f"launches of the declined device attempt {delta}")
     if dev.type == "cuda":
         for name, c in totals.items():
             check(c > 0, f"kernel {name} was not launched on the main path")
@@ -965,10 +1164,18 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
                                     device=dev)
         for cl, name, ts, d in ((1, "synth", 8, sy), (5, "synth", 8, sy),
                                 (9, "synth", 8, sy), (5, "int32 arange", 4, ar))}
+    zstd_chunks = {
+        (cl, name): tb.compress_ctx(cl, C.SHUFFLE, ts, d, compressor="zstd",
+                                    device=dev)
+        for cl, name, ts, d in ((1, "synth", 8, sy), (5, "synth", 8, sy),
+                                (9, "synth", 8, sy), (5, "int32 arange", 4, ar))}
     print(f"host-engine chunks of 4 MB synth: LZ4 clevel 5 {len(lz4_chunk)} B, "
           f"snappy {len(snappy_chunk)} B, zlib clevel 1/5/9 "
           f"{'/'.join(str(len(zlib_chunks[(c, 'synth')])) for c in (1, 5, 9))} "
           f"B; zlib int32 arange clevel 5 {len(zlib_chunks[(5, 'int32 arange')])}"
+          f" B; zstd clevel 1/5/9 "
+          f"{'/'.join(str(len(zstd_chunks[(c, 'synth')])) for c in (1, 5, 9))} "
+          f"B; zstd int32 arange clevel 5 {len(zstd_chunks[(5, 'int32 arange')])}"
           f" B ({time.perf_counter() - t0:.1f} s)")
     t_run = time.perf_counter()
 
@@ -981,7 +1188,10 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
     stamp("phase 2: lz4_walk, snappy_walk held and timed")
     stats.update(phase_zlib_walk(dev, zlib_chunks[(5, "synth")], reps))
     stamp("phase 2: zlib_walk held and timed")
-    for name in ("lz4_walk", "snappy_walk", "zlib_walk"):
+    stats.update(phase_zstd_walk(dev, zstd_chunks[(1, "synth")],
+                                 zstd_chunks[(5, "synth")], reps))
+    stamp("phase 2: zstd_walk held and timed")
+    for name in ("lz4_walk", "snappy_walk", "zlib_walk", "zstd_walk"):
         print_kernel(name, stats[name])
     counts = phase_byte_api(
         dev, chunk_bytes, low, host_chunk,
@@ -989,7 +1199,12 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
          ("host-engine snappy synth chunk", sy, snappy_chunk, "snappy_walk")]
         + [(f"host-engine zlib clevel-{cl} {name} chunk",
             sy if name == "synth" else ar, c, "zlib_walk")
-           for (cl, name), c in zlib_chunks.items()])
+           for (cl, name), c in zlib_chunks.items()]
+        + [(f"host-engine zstd clevel-{cl} {name} chunk",
+            sy if name == "synth" else ar, c, "zstd_walk")
+           for (cl, name), c in zstd_chunks.items() if cl != 9],
+        [("host-engine zstd clevel-9 synth chunk", sy,
+          zstd_chunks[(9, "synth")])])
     print(json.dumps({"launches": counts}))
     stamp("phase 3: byte API")
     phase_bench(dev, "synth sbits19 ts8", synth(workset, 8, 19), 8,
@@ -1000,7 +1215,9 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
     phase_bench(dev, "lz4 synth sbits19 ts8", synth(workset, 8, 19), 8,
                 chunk_bytes, reps, card, need=("lz4_walk",), code=C.LZ4)
     phase_zlib_bench(dev, workset, chunk_bytes, reps, card)
-    stamp("phase 4: 128 MB round trips and the 128 MB zlib decode")
+    for clevel in (5, 1):
+        phase_zstd_bench(dev, workset, chunk_bytes, reps, card, clevel)
+    stamp("phase 4: 128 MB round trips and the 128 MB zlib and zstd decodes")
 
     src = {"expand": ("cblosc_tpu_torch/csrc/expand.cu",
                       "cblosc_tpu/tpu/expand.py:258"),
@@ -1013,7 +1230,9 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
            "snappy_walk": ("cblosc_tpu_torch/csrc/snappy_walk.cu",
                            "cblosc_tpu/tpu/codec_snappy.py:58"),
            "zlib_walk": ("cblosc_tpu_torch/csrc/zlib_walk.cu",
-                         "cblosc_tpu/tpu/codec_zlib.py:143")}
+                         "cblosc_tpu/tpu/codec_zlib.py:143"),
+           "zstd_walk": ("cblosc_tpu_torch/csrc/zstd_walk.cu",
+                         "cblosc_tpu/tpu/codec_zstd.py:242")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": counts[name],
