@@ -172,6 +172,105 @@ def _decode(peek: torch.Tensor, tab, maxbits: int, rev15: torch.Tensor):
     return (torch.where(found, sym[:, 0], 0), torch.where(found, k + 1, 0))
 
 
+# K6's lookup tables (csrc/zlib_walk.cu): literal/length and distance
+# codes resolve through 2^_LOOKUP_BITS entries, the code-length code
+# through 2^_CL_BITS
+_LOOKUP_BITS = 10
+_CL_BITS = 7
+
+
+def _lookup_table(L: torch.Tensor, alpha: int):
+    """K6's lookup table of one alphabet, by the kernel's algorithm, for
+    the tests: the canonical code of the lengths L (S,) (per-length
+    counts, first codes and offsets; the symbols in (length, symbol)
+    order, each placed by counting the equal lengths before it), then
+    per entry e the shortest length b up to the table's bits whose code
+    range holds the first b stream bits of e (JAX's rule). alpha 0
+    (literal/length) and 1 (distance) pack an entry as len | extra << 4
+    | sym << 8 | base << 17 over _LOOKUP_BITS bits, 0 where no length
+    holds the code; alpha 2 (code length) as len | sym << 3 over
+    _CL_BITS bits. Returns (table int64 (2^bits,), (first, cnt, offs,
+    sym))."""
+    L = L.to(I64)
+    S = L.shape[0]
+    bits = _CL_BITS if alpha == 2 else _LOOKUP_BITS
+    b = torch.arange(16)
+    cnt = ((L[:, None] == b) & (b >= 1)).sum(dim=0)
+    first = torch.zeros(16, dtype=I64)
+    offs = torch.zeros(16, dtype=I64)
+    code = off = 0
+    for k in range(1, 16):
+        first[k], offs[k] = code, off
+        code = (code + int(cnt[k])) << 1
+        off += int(cnt[k])
+    before = ((L[None, :] == L[:, None])
+              & (torch.arange(S)[None, :] < torch.arange(S)[:, None])).sum(1)
+    sym = torch.zeros(max(S, 1), dtype=I64)
+    live = L > 0
+    sym[offs[L[live]] + before[live]] = torch.arange(S)[live]
+    e = torch.arange(1 << bits)
+    rev = torch.from_numpy(_REV15)[e] >> (15 - bits)
+    ln = torch.zeros_like(e)
+    sy = torch.zeros_like(e)
+    for k in range(bits, 0, -1):            # the shortest hit is written last
+        c = rev >> (bits - k)
+        hit = (cnt[k] > 0) & (c >= first[k]) & (c < first[k] + cnt[k])
+        ln = torch.where(hit, k, ln)
+        sy = torch.where(hit, sym[(offs[k] + c - first[k]).clamp(0, S - 1)],
+                         sy)
+    if alpha == 2:
+        return ln | sy << 3, (first, cnt, offs, sym)
+    ext, base = _extra_base(sy, alpha)
+    tab = torch.where(ln > 0, ln | ext << 4 | sy << 8 | base << 17, 0)
+    return tab, (first, cnt, offs, sym)
+
+
+def _extra_base(sym: torch.Tensor, alpha: int):
+    """(extra-bit count, base) of literal/length symbols 257..285 (alpha
+    0) or distance symbols 0..29 (alpha 1); 0 and 0 for other symbols."""
+    if alpha == 0:
+        i = (sym - 257).clamp(0, 28)
+        m = (sym >= 257) & (sym <= 285)
+        ext, base = torch.from_numpy(_LEXTRA)[i], torch.from_numpy(_LBASE)[i]
+    else:
+        i = sym.clamp(0, 29)
+        m = sym < 30
+        ext, base = torch.from_numpy(_DEXTRA)[i], torch.from_numpy(_DBASE)[i]
+    return torch.where(m, ext, 0), torch.where(m, base, 0)
+
+
+def _lookup_decode(table, canon, alpha: int, peek: torch.Tensor):
+    """(sym, len, extra, base) per peek (>= 15 LSB-first stream bits) as
+    K6 decodes it: the table entry, or for a code longer than the table
+    (entry 0 of a literal/length or distance table) the canonical
+    compare for lengths _LOOKUP_BITS+1..15. len 0 where no length holds
+    the code."""
+    peek = peek.to(I64)
+    if alpha == 2:
+        e = table[peek & ((1 << _CL_BITS) - 1)]
+        z = torch.zeros_like(e)
+        return e >> 3, e & 7, z, z
+    e = table[peek & ((1 << _LOOKUP_BITS) - 1)]
+    ln, sy = e & 15, (e >> 8) & 511
+    ext, base = (e >> 4) & 15, e >> 17
+    first, cnt, offs, sym = canon
+    rev = torch.from_numpy(_REV15)[peek & 0x7FFF]
+    lln = torch.zeros_like(ln)
+    lsy = torch.zeros_like(sy)
+    for k in range(15, _LOOKUP_BITS, -1):
+        c = rev >> (15 - k)
+        hit = (cnt[k] > 0) & (c >= first[k]) & (c < first[k] + cnt[k])
+        lln = torch.where(hit, k, lln)
+        lsy = torch.where(hit, sym[(offs[k] + c - first[k]).clamp(
+            0, sym.shape[0] - 1)], lsy)
+    lext, lbase = _extra_base(lsy, alpha)
+    long = ln == 0
+    return (torch.where(long, torch.where(lln > 0, lsy, 0), sy),
+            torch.where(long, lln, ln),
+            torch.where(long & (lln > 0), lext, ext),
+            torch.where(long & (lln > 0), lbase, base))
+
+
 def _fsm_walk_plain(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
                     E: int):
     """K6's function in plain PyTorch: every live row takes one step of

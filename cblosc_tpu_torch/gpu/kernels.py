@@ -43,7 +43,9 @@ _I = ctypes.c_int
 # the three walks share one signature (structured.launch_walk)
 _WALK = [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]
 _SIGS = {
-    "expand": ("expand_launch", [_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P]),
+    # slots, N, W, kind, arg, dst, len, R, out, out_len, stats, stream
+    "expand": ("expand_launch", [_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P,
+                                 _P]),
     "walk": ("walk_launch", _WALK),
     "decode_one": ("decode_launch", [_P, _I, _I, _P, _I, _P, _P, _P, _P]),
     "lz4_walk": ("lz4_walk_launch", _WALK),

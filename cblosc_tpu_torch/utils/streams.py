@@ -18,6 +18,8 @@ within 8 bytes of csize (the bytes past csize kept in the row),
 one-byte corruptions, and random bytes. :func:`lz4_rows` and
 :func:`snappy_rows` do the same for the LZ4 block format and raw snappy
 (their kinds are listed there), :func:`zlib_rows` for zlib streams.
+:func:`record_rows` writes placement records straight, well formed or
+not, for the expand kernel.
 """
 
 from __future__ import annotations
@@ -569,6 +571,10 @@ def snappy_rows(seed: int, out_len: int, width: int, garbage: int = 8):
 #   multiblock  four pieces, each closed by Z_PARTIAL_FLUSH (which ends a
 #               block with an empty fixed-code block; Z_SYNC_FLUSH and
 #               Z_FULL_FLUSH would add empty stored blocks, which err)
+#   longcodes   one dynamic block written bit by bit, its literal/length
+#               and distance codes complete but 11 to 15 bits long for
+#               most symbols (lengths 1..11, then 16 codes of 15 bits),
+#               so most symbols pass K6's 10-bit lookup
 #   dense       Z_HUFFMAN_ONLY: one literal event per output byte, past
 #               the default event budget, within high_events
 # One row the library itself rejects but the JAX machine decodes:
@@ -584,7 +590,7 @@ def snappy_rows(seed: int, out_len: int, width: int, garbage: int = 8):
 # code-length repeat (16) at position 0.
 
 ZLIB_VALID = ("level1", "level6", "level9", "fixed", "rle", "filtered",
-              "multiblock")
+              "multiblock", "longcodes")
 ZLIB_BAD = ("cm", "fdict", "short", "stored", "btype3", "far_dist",
             "overrun", "truncated", "rep16_first")
 ZLIB_ODD = ("oversub",)
@@ -606,10 +612,12 @@ def _zlib_tables():
         cz._FIXED_LL
 
 
-def deflate_blocks(stream: bytes) -> list:
+def deflate_blocks(stream: bytes, lengths: list | None = None) -> list:
     """The BTYPE of every block of a zlib stream, from a bitwise parse of
     RFC 1951 that skips the payloads. Raises ValueError on a malformed
-    stream."""
+    stream. When `lengths` is a list, each dynamic block appends its
+    code lengths to it: (code-length code (19), literal/length (HLIT),
+    distance (HDIST))."""
     lbase, lextra, dbase, dextra, clorder, fixed_ll = _zlib_tables()
     data, pos = stream[2:], 0
 
@@ -670,6 +678,8 @@ def deflate_blocks(stream: bytes) -> list:
                     else:
                         L += [0] * (3 + bits(3) if s == 17 else 11 + bits(7))
                 lt, dt = table(L[:hlit]), table(L[hlit:])
+                if lengths is not None:
+                    lengths.append((cl, L[:hlit], L[hlit:hlit + hdist]))
             while (s := sym(lt)) != 256:
                 if s > 256:
                     bits(int(lextra[s - 257]))
@@ -710,10 +720,13 @@ class _BitWriter:
         self.code(di, 5)
         self.put(d - int(dbase[di]), int(dextra[di]))
 
-    def zlib_stream(self) -> bytes:
-        """The bits as a zlib stream, with a (never checked) adler32."""
+    def zlib_stream(self, data: bytes | None = None) -> bytes:
+        """The bits as a zlib stream, with the adler32 of `data`, or a
+        (never checked) placeholder."""
         body = self.acc.to_bytes((self.n + 7) // 8, "little")
-        return _ZLIB_HDR + body + b"\0\0\0\1"
+        check = (b"\0\0\0\1" if data is None
+                 else zlib.adler32(data).to_bytes(4, "big"))
+        return _ZLIB_HDR + body + check
 
 
 def zlib_data(rng, n: int) -> bytes:
@@ -746,9 +759,94 @@ def _compress(data: bytes, level: int = 6,
     return out + co.flush()
 
 
+def _canonical(lengths) -> dict:
+    """symbol -> (code, length) of the canonical code of `lengths`."""
+    out, code = {}, 0
+    for b in range(1, 16):
+        for sym, ln in enumerate(lengths):
+            if ln == b:
+                out[sym] = (code, b)
+                code += 1
+        code <<= 1
+    return out
+
+
+def zlib_longcodes(rng, out_len: int):
+    """(stream, data): one final dynamic block whose literal/length code
+    gives 11 symbols the lengths 1..11 and 16 more the length 15, and
+    whose distance code gives 14 symbols the lengths 1..14 and 2 the
+    length 15 (both complete, so zlib decodes it too), the symbols
+    shuffled among the lengths; then literals (16 byte values) and
+    matches drawn from those symbols up to out_len, and EOB."""
+    lbase, lextra, dbase, dextra, clorder, _ = _zlib_tables()
+    lens_l = list(range(1, 12)) + [15] * 16
+    lits = [int(v) for v in rng.choice(256, 16, replace=False)]
+    lsyms = lits + [256] + [int(v) for v in rng.choice(
+        np.arange(257, 286), len(lens_l) - 17, replace=False)]
+    rng.shuffle(lsyms)
+    L = [0] * 286
+    for sym, ln in zip(lsyms, lens_l):
+        L[sym] = ln
+    lens_d = list(range(1, 15)) + [15, 15]
+    dsyms = [int(v) for v in rng.permutation(30)[:len(lens_d)]]
+    D = [0] * 30
+    for sym, ln in zip(dsyms, lens_d):
+        D[sym] = ln
+    hlit = max(i for i, v in enumerate(L) if v) + 1
+    hdist = max(i for i, v in enumerate(D) if v) + 1
+    w = _BitWriter()
+    w.put(1, 1)
+    w.put(2, 2)                                  # final, dynamic Huffman
+    w.put(hlit - 257, 5)
+    w.put(hdist - 1, 5)
+    w.put(19 - 4, 4)                             # HCLEN 19
+    for sym in clorder:                          # lengths 0..15: 4 bits each
+        w.put(4 if sym < 16 else 0, 3)
+    for ln in L[:hlit] + D[:hdist]:
+        w.code(ln, 4)
+    lc, dc = _canonical(L[:hlit]), _canonical(D[:hdist])
+    lens = [s for s in lsyms if s > 256]
+    out = bytearray()
+    while len(out) < out_len:
+        room = out_len - len(out)
+        ls = [s for s in lens if lbase[s - 257] <= room]
+        ds = [s for s in dsyms if dbase[s] <= len(out)]
+        if not ls or not ds or rng.random() < 0.6:
+            b = lits[int(rng.integers(0, 16))]
+            w.code(*lc[b])
+            out.append(b)
+            continue
+        sym = ls[int(rng.integers(0, len(ls)))]
+        i = sym - 257
+        ext = int(rng.integers(0, 1 << int(lextra[i])))
+        n = min(int(lbase[i]) + ext, room)
+        if n < int(lbase[i]):
+            continue
+        ext = n - int(lbase[i])
+        if ext >= 1 << int(lextra[i]):
+            continue
+        ds_ = ds[int(rng.integers(0, len(ds)))]
+        dext = int(rng.integers(0, 1 << int(dextra[ds_])))
+        d = min(int(dbase[ds_]) + dext, len(out))
+        dext = d - int(dbase[ds_])
+        w.code(*lc[sym])
+        w.put(ext, int(lextra[i]))
+        w.code(*dc[ds_])
+        w.put(dext, int(dextra[ds_]))
+        for _ in range(n):
+            out.append(out[-d])
+    w.code(*lc[256])
+    return w.zlib_stream(bytes(out)), bytes(out)
+
+
 def zlib_valid(rng, out_len: int, kind: str) -> bytes:
     """A valid zlib stream of `kind` (ZLIB_VALID or "dense") decoding to
     out_len bytes, its block types checked."""
+    if kind == "longcodes":
+        s, want = zlib_longcodes(rng, out_len)
+        if zlib.decompress(s) != want:
+            raise AssertionError("zlib longcodes: unexpected stream")
+        return s
     if kind == "dense":
         s = _compress(rng.integers(0, 16, out_len, dtype=np.uint8).tobytes(),
                       6, zlib.Z_HUFFMAN_ONLY)
@@ -1144,3 +1242,116 @@ def zstd_rows(seed: int, out_len: int, width: int, garbage: int = 0):
         kinds += ("flip",) * len(valid) + ("garbage",) * garbage
     buf, cs = _pack(rows, width)
     return buf, cs, kinds
+
+
+# ---------------------------------------------------------------------------
+# placement records (the expand kernel's input)
+# ---------------------------------------------------------------------------
+#
+# Rows of records written straight, with the bytes they read. Well-formed
+# kinds (extents in order, disjoint, inside the row; match distances in
+# [1, dst]), which the kernel resolves by pointer jumping:
+#   chain1     a literal byte, then distance-1 matches, each reading the
+#              last byte of the one before (one chain through the row)
+#   periodic   matches with distance < length (2..16), short literals
+#   gaps       records separated by unwritten bytes, immediates, and
+#              zero-length records
+#   mixed      literals (some reading past the row's ends), immediates
+#              and matches at any distance up to dst
+#   dense      1-3 byte records, more than one staged tile of them
+#   tail       a well-formed row, then kind -1, then records that are not
+#              (ignored: a row ends at its first kind < 0)
+# Kinds that are not well formed, which take the per-record loop: overlap
+# (a record starts inside the one before), far (distance > dst), zero_d
+# (distance 0), neg_len, bad_kind (low nibble 5), past_end (an extent
+# past out_len), unordered (a record before the one before).
+RECORD_WELL_FORMED = ("chain1", "periodic", "gaps", "mixed", "dense", "tail")
+RECORD_ADVERSARIAL = ("overlap", "far", "zero_d", "neg_len", "bad_kind",
+                      "past_end", "unordered")
+RECORD_KINDS = RECORD_WELL_FORMED + RECORD_ADVERSARIAL
+
+
+def _record_row(rng, out_len: int, width: int, kind: str) -> list:
+    """[(kind, arg, dst, len)] of one well-formed row of `kind`."""
+    recs, pos = [], 0
+    while pos < out_len:
+        room = out_len - pos
+        r = rng.random()
+        if kind == "dense":
+            n = min(int(rng.integers(1, 4)), room)
+        elif kind == "chain1":
+            n = min(int(rng.integers(20, 400)), room)
+        else:
+            n = min(int(rng.integers(1, 300)), room)
+        if pos == 0 or (kind == "chain1" and r < 0.02) or (
+                kind in ("periodic", "dense") and r < 0.2) or (
+                kind in ("mixed", "gaps") and r < 0.3):
+            if kind == "mixed" and r < 0.05:
+                src = int(rng.integers(-40, 0))          # reads zeros first
+            elif kind == "mixed" and r < 0.1:
+                src = width - n + int(rng.integers(1, 40))   # past the end
+            else:
+                src = int(rng.integers(0, max(width - n, 1)))
+            if kind == "chain1":
+                n = 1
+            recs.append((0, src, pos, n))
+        elif kind in ("gaps", "mixed") and r < 0.4:
+            nb = min(int(rng.integers(0, 9)), room)
+            lo, hi = rng.integers(-2**31, 2**31, 2)
+            recs.append(((nb << 4) | 2, int(lo), pos, int(hi)))
+            n = nb
+        else:
+            if kind == "chain1":
+                d = 1
+            elif kind == "periodic":
+                d = min(int(rng.integers(2, 17)), pos)
+            elif kind == "dense":
+                d = int(rng.integers(1, min(pos, 64) + 1))
+            else:
+                d = int(np.exp(rng.uniform(0, np.log(pos + 1))))
+                d = min(max(d, 1), pos)
+            recs.append((1, d, pos, n))
+        pos += n
+        if kind == "gaps":
+            if rng.random() < 0.1:
+                recs.append((0, 0, pos, 0))              # zero-length
+            pos += int(rng.integers(0, 50))
+    return recs
+
+
+def record_rows(seed: int, out_len: int, width: int,
+                kinds=RECORD_KINDS):
+    """(slots uint8 (N, width), fields): one row of records per kind, the
+    fields (kind, arg, dst, len) int32 (N, R) numpy arrays, kind -1 and
+    zeros past each row's records; slots random bytes."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for kind in kinds:
+        base = "mixed" if kind in RECORD_ADVERSARIAL else kind
+        recs = _record_row(rng, out_len, width, base)
+        k = len(recs) // 2
+        if kind == "tail":
+            recs = recs + [(-1, 0, 0, 0), (1, 10**6, -5, 7), (3, 0, 0, 1)]
+        elif kind == "overlap":
+            a, b, c, n = recs[k]
+            recs[k] = (a, b, c - 1, n)
+        elif kind == "far":
+            recs.insert(k, (1, recs[k][2] + 1, recs[k][2], 0))
+        elif kind == "zero_d":
+            recs.insert(k, (1, 0, recs[k][2], 0))
+        elif kind == "neg_len":
+            recs.insert(k, (0, 0, recs[k][2], -3))
+        elif kind == "bad_kind":
+            recs.insert(k, (5, 0, recs[k][2], 1))
+        elif kind == "past_end":
+            recs.append((1, 1, out_len - 2, 5))
+        elif kind == "unordered":
+            recs[k], recs[k + 1] = recs[k + 1], recs[k]
+        rows.append(recs)
+    R = max(len(r) for r in rows)
+    f = np.zeros((4, len(rows), R), np.int64)
+    f[0] = -1
+    for i, recs in enumerate(rows):
+        f[:, i, :len(recs)] = np.asarray(recs, np.int64).T
+    slots = rng.integers(0, 256, (len(rows), width), dtype=np.uint8)
+    return slots, tuple(f.astype(np.int32))

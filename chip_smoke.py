@@ -37,7 +37,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      dense rows, the generated Huffman-only rows) are held by
      their K6 + K1 output at the escalated budget against
      zlib.decompress. It is timed on the chunk's 24 live rows at the
-     escalated budget, the one the byte API settles on. The zstd walk
+     escalated budget, the one the byte API settles on, with the events
+     of the densest row and the ns an event. The expand kernel (K1) is
+     timed on the same 24 rows, over K6's tape, and on the 16 live rows
+     of the 4 MB synth clevel-5 zstd chunk, over K7's [tape | stream],
+     each held to its plain version on two of those rows on the card;
+     on every main-path input (the int32 arange, LZ4, snappy, zlib and
+     zstd chunks' rows) it reports the rows that took its per-record
+     branch (there must be none) and the largest number of pointer-
+     jumping rounds. The zstd walk
      (zstd_walk) is held, tape and records included, on the generated
      zstd frames of streams.ZSTD_CARD_CASES up to 32 KB (every frame
      feature, corruptions, one-byte flips, random rows) and on a few
@@ -437,6 +445,8 @@ def phase_codec_walks(dev, chunk_bytes, snappy_chunk, reps):
     cases += dense_cases(codec_lz4.walk, codec_lz4.max_records,
                          streams.lz4_dense, lambda n: n + 64, "LZ4")
     m_rows, m_cs, n = lz4_main_rows(dev, chunk_bytes)
+    mk = codec_lz4.walk(m_rows, m_cs, n, codec_lz4.max_records(n))
+    k1_branches("the LZ4 synth chunk", m_rows, mk[0], n, mk[3])
     out["lz4_walk"] = r = _walk_entry(
         dev, codec_lz4.walk, codec_lz4._walk_plain, "::lz4_walk", m_rows,
         m_cs, n, codec_lz4.max_records(n), reps)
@@ -463,6 +473,8 @@ def phase_codec_walks(dev, chunk_bytes, snappy_chunk, reps):
     s_rows, s_cs, sn = chunk_rows(dev, snappy_chunk)
     s_rows, s_cs = live_rows(s_rows, s_cs, sn)
     smr = codec_snappy.max_records(sn)
+    sk = codec_snappy.walk(s_rows, s_cs, sn, structured.high_records(sn))
+    k1_branches("the snappy synth chunk", s_rows, sk[0], sn, sk[3])
     out["snappy_walk"] = r = _walk_entry(
         dev, codec_snappy.walk, codec_snappy._walk_plain, "::snappy_walk",
         s_rows, s_cs, sn, smr, reps)
@@ -499,6 +511,75 @@ def phase_codec_walks(dev, chunk_bytes, snappy_chunk, reps):
           f"plain {r['long_plain_ms']:.4f} ms (on the host); bound "
           f"{r['long_bound_ms']:.6f} ms")
     return out
+
+
+# K1's branch on every main-path input: (label, rows, rows on the
+# per-record loop, largest number of jumping rounds)
+K1_BRANCHES: list = []
+
+
+def k1_branches(label, src, rf, n, ok=None) -> None:
+    """K1 with its per-row branch stats (expand's stats argument) on one
+    main-path input (the rows ok selects): every row must take the
+    pointer-jumping path; the line of phase 2 prints the rows and the
+    largest number of jumping rounds."""
+    from cblosc_tpu_torch.gpu import expand
+
+    if ok is not None:
+        k = torch.nonzero(ok).flatten()
+        src, rf = src[k].contiguous(), tuple(f[k].contiguous() for f in rf)
+    stats = torch.empty(src.shape[0], dtype=torch.int32, device=src.device)
+    expand.expand(src, rf, n, stats)
+    serial = int((stats < 0).sum())
+    K1_BRANCHES.append((label, src.shape[0], serial,
+                        int(stats.max()) if stats.numel() else 0))
+    check(serial == 0, f"expand: {serial} main-path rows of {label} took the "
+          "per-record branch")
+
+
+def k1_on_rows(dev, label, src, rf, n, held, reps) -> dict:
+    """K1 on a codec's main-path rows (every row the walk accepted): its
+    branch stats, equal to the plain expand on the card on the `held`
+    rows (the plain loop takes one record index a step), timed alone and
+    by the profiler; bound = (literal bytes read + 16 B a record + out_len
+    a row) / HBM rate. Keys prefixed with `label`."""
+    from cblosc_tpu_torch.gpu import expand
+
+    k1_branches(f"the {label} chunk", src, rf, n)
+    sel = torch.as_tensor(held, device=src.device)
+    hs, hrf = src[sel].contiguous(), tuple(f[sel].contiguous() for f in rf)
+    t0 = time.perf_counter()
+    err = _maxdiff([expand.expand(hs, hrf, n)],
+                   [expand._expand_plain(hs, hrf, n)])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check(err == 0, f"expand kernel differs from its plain version on the "
+          f"{label} rows ({err})")
+    call = lambda: expand.expand(src, rf, n)  # noqa: E731
+    device_ms, source = _device_ms(dev, call, "::expand_kernel")
+    N = src.shape[0]
+    valid = rf[0] >= 0
+    nrec = int(valid.sum())
+    lits = int(torch.where(valid & (rf[0] == 0), rf[3], 0).sum())
+    return {f"{label}_max_abs_err": err, f"{label}_ms": _ms(dev, call, reps),
+            f"{label}_device_ms": device_ms,
+            f"{label}_device_ms_source": source,
+            f"{label}_bound_ms": (lits + 16 * nrec + N * n)
+            / HBM_BYTES_PER_S * 1e3,
+            f"{label}_rows": N, f"{label}_records": nrec,
+            f"{label}_literal_bytes": lits, f"{label}_held_rows": len(held),
+            f"{label}_held_s": plain_s}
+
+
+def print_k1_rows(e: dict, label: str, what: str) -> None:
+    print(f"kernel expand on {what}: {e[label + '_records']} records, "
+          f"{e[label + '_literal_bytes']} literal bytes; equal to plain on "
+          f"{e[label + '_held_rows']} rows on the card "
+          f"({e[label + '_held_s']:.1f} s); {e[label + '_ms']:.4f} ms per "
+          f"call alone (CUDA events); {e[label + '_device_ms']:.4f} ms on "
+          f"the card ({_device_label(e[label + '_device_ms_source'])}); "
+          f"bound {e[label + '_bound_ms']:.6f} ms")
 
 
 def _zlib_fields(walk):
@@ -578,6 +659,11 @@ def phase_zlib_walk(dev, z_chunk, reps):
     N = rows.shape[0]
     nrec = int((k[2][0] >= 0).sum())
     lits = int(k[1].sum())
+    events = k[1].to(torch.int64) + (k[2][0] == 1).sum(dim=1)
+    dense = int(events.argmax())
+    # K1 on the same rows, over the tape, as the byte API places them
+    held_rows = [int(i) for i in light[:2]]
+    e = k1_on_rows(dev, "zlib", k[0], k[2], n, held_rows, reps)
     held_call = lambda: codec_zlib.fsm_walk(l_rows, l_cs, n, dflt)  # noqa: E731
     hk = held_call()
     hN = l_rows.shape[0]
@@ -594,15 +680,23 @@ def phase_zlib_walk(dev, z_chunk, reps):
         held_ms=_ms(dev, held_call, reps), held_rows=hN,
         held_bound_ms=(int(l_cs.sum()) + 4 * hN + int(hk[1].sum())
                        + 16 * int((hk[2][0] >= 0).sum()) + 10 * hN)
-        / HBM_BYTES_PER_S * 1e3)
+        / HBM_BYTES_PER_S * 1e3,
+        dense_events=int(events[dense]), dense_literals=int(k[1][dense]),
+        dense_records=int((k[2][0][dense] >= 0).sum()),
+        ns_per_event=device_ms * 1e6 / max(int(events[dense]), 1))
     print(f"kernel zlib_walk inputs: {N} live rows of the host engine's 4 MB "
           f"synth zlib chunk (clevel 5, out_len {n}) at the escalated budget "
           f"({hi} events): {lits} literals, {nrec} records, {r['accepted']} "
           f"rows accepted; {N - hN} rows overflow the default budget "
           f"({dflt} events). The {hN} others at the default budget: "
           f"{r['held_ms']:.4f} ms per call alone (CUDA events) against plain "
-          f"{plain_ms:.4f} ms (on the host); bound {r['held_bound_ms']:.6f} ms")
-    return {"zlib_walk": r}
+          f"{plain_ms:.4f} ms (on the host); bound {r['held_bound_ms']:.6f} ms."
+          f" The densest row: {r['dense_events']} events ({r['dense_literals']}"
+          f" literals, {r['dense_records']} records), {r['ns_per_event']:.1f} "
+          "ns an event on the card")
+    print_k1_rows(e, "zlib", f"the {N} live rows of the 4 MB synth "
+                  "clevel-5 zlib chunk (over the tape, escalated budget)")
+    return {"zlib_walk": r, "expand": e}
 
 
 def phase_zlib_bench(dev, workset, chunk_bytes, reps, card):
@@ -746,6 +840,13 @@ def phase_zstd_walk(dev, z1_chunk, z5_chunk, reps):
     accepted = int(k[3].sum())
     check(accepted == N, "the clevel-5 chunk's rows must walk at the default "
           "budget")
+    # K1 on the same rows, over [tape | stream], as the byte API places
+    # them; its branch on the clevel-1 chunk's rows too
+    e = k1_on_rows(dev, "zstd", torch.cat([k[0], r5], dim=1), k[2], n5,
+                   [0, 1], reps)
+    k1c = codec_zstd.fsm_walk(r1, c1, n1, codec_zstd.default_events(n1))
+    k1_branches("the zstd clevel-1 chunk", torch.cat([k1c[0], r1], dim=1),
+                k1c[2], n1, k1c[3])
     r = dict(
         max_abs_err=err,
         ms=_ms(dev, call, reps),
@@ -761,7 +862,9 @@ def phase_zstd_walk(dev, z1_chunk, z5_chunk, reps):
           f"({dflt} events): {lits} tape bytes, {nrec} records, {accepted} rows "
           f"accepted; plain {plain_ms[n5]:.1f} ms for 2 of them, "
           f"{plain_ms[n1]:.1f} ms for 4 clevel-1 rows (on the host)")
-    return {"zstd_walk": r}
+    print_k1_rows(e, "zstd", f"the {N} live rows of the 4 MB synth "
+                  "clevel-5 zstd chunk (over [tape | stream])")
+    return {"zstd_walk": r, "expand": e}
 
 
 def phase_zstd_bench(dev, workset, chunk_bytes, reps, card, clevel):
@@ -912,6 +1015,7 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
         / HBM_BYTES_PER_S * 1e3)
 
     # K1 expand: main-path records and host-encoder (mixed distances)
+    k1_branches("the int32 arange chunk", a_rows, rf, n)
     hrf = structured.walk(h_rows, h_cs, hn, maxrec)[0]
     err = 0
     for rows, rfx, ol in ((a_rows, rf, n), (h_rows, hrf, hn)):
@@ -1186,11 +1290,24 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
     stamp("phase 2: expand, walk, decode_one held and timed")
     stats.update(phase_codec_walks(dev, chunk_bytes, snappy_chunk, reps))
     stamp("phase 2: lz4_walk, snappy_walk held and timed")
-    stats.update(phase_zlib_walk(dev, zlib_chunks[(5, "synth")], reps))
-    stamp("phase 2: zlib_walk held and timed")
-    stats.update(phase_zstd_walk(dev, zstd_chunks[(1, "synth")],
-                                 zstd_chunks[(5, "synth")], reps))
-    stamp("phase 2: zstd_walk held and timed")
+    for part in (phase_zlib_walk(dev, zlib_chunks[(5, "synth")], reps),
+                 phase_zstd_walk(dev, zstd_chunks[(1, "synth")],
+                                 zstd_chunks[(5, "synth")], reps)):
+        e = part.pop("expand")
+        stats["expand"]["max_abs_err"] = max(
+            stats["expand"]["max_abs_err"],
+            *(v for k, v in e.items() if k.endswith("max_abs_err")))
+        stats["expand"].update(e)
+        stats.update(part)
+        stamp(f"phase 2: {', '.join(part)} and expand on its rows held and "
+              "timed")
+    stats["expand"].update(
+        serial_rows=sum(b[2] for b in K1_BRANCHES),
+        max_rounds=max(b[3] for b in K1_BRANCHES))
+    print("kernel expand branches on the main-path inputs: " + "; ".join(
+        f"{label}: {rows} rows, {serial} on the per-record loop, at most "
+        f"{rounds} jumping rounds" for label, rows, serial, rounds in
+        K1_BRANCHES))
     for name in ("lz4_walk", "snappy_walk", "zlib_walk", "zstd_walk"):
         print_kernel(name, stats[name])
     counts = phase_byte_api(

@@ -1,6 +1,10 @@
 """PyTorch port of the expand kernel vs cblosc_tpu.tpu.expand (Pallas,
 interpret mode on the CPU): the five cases of tests/test_expand_kernel.py,
-on the same records, with exact bytes wherever the records are valid."""
+on the same records, with exact bytes wherever the records are valid;
+then the kernel's split (well-formed rows by pointer jumping, the others
+record by record) in plain PyTorch against the per-record loop and the
+Pallas kernel, on records written straight (utils/streams.record_rows)
+and on the records of the port's walks."""
 
 import numpy as np
 import pytest
@@ -10,7 +14,9 @@ import jax.numpy as jnp
 
 from cblosc_tpu.ops.codecs import blosclz as lzhost
 from cblosc_tpu.tpu import codec as jc, expand as je, structured as js
+from cblosc_tpu_torch.gpu import codec_lz4 as tl, codec_zlib as tz
 from cblosc_tpu_torch.gpu import expand as te, structured as ts
+from cblosc_tpu_torch.utils import streams
 from test_torch_common import cuda, jax_walk, pack_rows  # noqa: F401
 
 
@@ -159,3 +165,122 @@ def test_expand_kernel_matches_plain_on_card(rng, cuda):
     assert torch.equal(
         te.expand(s.to(cuda), tuple(f.to(cuda) for f in recs), 1024).cpu(),
         te.expand(s, recs, 1024))
+
+
+# kinds whose records read no byte outside the row: the Pallas kernel's
+# own clamping may differ from the port's outside it
+_JAX_KINDS = ("chain1", "periodic", "gaps", "dense")
+
+
+def _torch_fields(f):
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in f)
+
+
+@pytest.mark.parametrize("kind", streams.RECORD_KINDS)
+def test_jump_split_matches_per_record_loop(kind):
+    """The kernel's split in plain PyTorch: a row of each kind, written
+    straight (d = 1 chains, periodic matches with d < len, gaps,
+    immediates, zero-length records, more than one staged tile of
+    records, literals reading past the row's ends; and every way a row
+    can fail the check), places the bytes of the per-record loop; the
+    well-formed kinds take pointer jumping, the others the loop."""
+    slots, f = streams.record_rows(61, 3000, 700, (kind,))
+    rf = _torch_fields(f)
+    got, rounds = te._expand_jump_plain(torch.from_numpy(slots), rf, 3000)
+    assert torch.equal(got, te._expand_plain(torch.from_numpy(slots), rf,
+                                             3000))
+    wf = kind in streams.RECORD_WELL_FORMED
+    assert bool(te._well_formed(rf, 3000)[0]) == wf
+    assert (int(rounds[0]) >= 0) == wf
+    if kind in ("chain1", "periodic", "dense"):
+        assert int(rounds[0]) >= 2          # chains across records
+    stats = torch.zeros(1, dtype=torch.int32)
+    assert torch.equal(te.expand(torch.from_numpy(slots), rf, 3000, stats),
+                       got)
+    assert torch.equal(stats, rounds)
+
+
+def test_jump_split_matches_jax_expand():
+    """The same split against the Pallas kernel (interpret mode) on the
+    well-formed kinds whose literals stay inside the row, and on the
+    zlib walk's records over its tape (the rows it accepts)."""
+    n = 1024
+    slots, f = streams.record_rows(62, n, 500, _JAX_KINDS)
+    seed, _, width = streams.ZLIB_CASES[0]
+    buf, cs, _ = streams.zlib_rows(seed, n, width)
+    tape, _, rf, _, _, ok = tz.fsm_walk(torch.from_numpy(buf),
+                                        torch.from_numpy(cs), n,
+                                        tz.high_events(n))
+    k = torch.nonzero(ok).flatten()
+    for src, fields in ((slots, f),
+                        (tape[k].numpy(), tuple(x[k].numpy() for x in rf))):
+        want = np.asarray(je.expand(jnp.asarray(src),
+                                    tuple(jnp.asarray(x) for x in fields), n,
+                                    interpret=True))
+        got, rounds = te._expand_jump_plain(torch.from_numpy(src),
+                                            _torch_fields(fields), n)
+        assert (rounds >= 0).all()
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_walk_records_are_well_formed(rng):
+    """Every row the port's walks accept is well formed, so the kernel
+    places it by pointer jumping: blosclz, LZ4 and zlib walks on their
+    generated streams (records over the row, or over the zlib tape), the
+    split's bytes equal to the per-record loop's."""
+    cases = []
+    seed, n, width = streams.CASES[1]
+    buf, cs, _ = streams.generated_rows(seed, n, width)
+    b, c = torch.from_numpy(buf), torch.from_numpy(cs)
+    rf, _, _, ok = ts.walk(b, c, n, ts.max_records(n))
+    cases.append((b, rf, ok, n))
+    seed, n, width = streams.LZ4_CASES[0]
+    buf, cs, _, _ = streams.lz4_rows(seed, n, width)
+    b, c = torch.from_numpy(buf), torch.from_numpy(cs)
+    rf, _, _, ok = tl.walk(b, c, n, ts.max_records(n))
+    cases.append((b, rf, ok, n))
+    seed, n, width = streams.ZLIB_CASES[0]
+    buf, cs, _ = streams.zlib_rows(seed, n, width)
+    tape, _, rf, _, _, ok = tz.fsm_walk(torch.from_numpy(buf),
+                                        torch.from_numpy(cs), n,
+                                        tz.high_events(n))
+    cases.append((tape, rf, ok, n))
+    for src, rf, ok, n in cases:
+        assert bool(ok.any())
+        assert bool(te._well_formed(rf, n)[ok].all())
+        got, rounds = te._expand_jump_plain(src, rf, n)
+        assert bool((rounds[ok] >= 0).all())
+        assert torch.equal(got[ok], te._expand_plain(src, rf, n)[ok])
+
+
+@pytest.mark.cuda
+def test_expand_kernel_on_zlib_walk_records(cuda):
+    """K1 on the card over the zlib walk's tape and records (every
+    generated zlib row at the escalated budget): equal to the per-record
+    loop, and every accepted row well formed (stats >= 0)."""
+    for seed, n, width in streams.ZLIB_CARD_CASES:
+        buf, cs, _ = streams.zlib_rows(seed, n, width, garbage=8)
+        tape, _, rf, _, _, ok = tz.fsm_walk(
+            torch.from_numpy(buf).to(cuda), torch.from_numpy(cs).to(cuda), n,
+            tz.high_events(n))
+        stats = torch.empty(buf.shape[0], dtype=torch.int32, device=cuda)
+        got = te.expand(tape, rf, n, stats)
+        assert torch.equal(got, te._expand_plain(tape, rf, n))
+        assert bool((stats[ok] >= 0).all())
+
+
+@pytest.mark.cuda
+def test_expand_kernel_mixes_jumping_and_per_record_rows(cuda):
+    """One launch holding a row of every record kind, well formed or not:
+    each row equal to the per-record loop, and the rows that took the
+    kernel's per-record branch (stats -1) exactly those that are not well
+    formed; rows past 32 KB and 1024 records span several windows and
+    tiles."""
+    for seed, n, width in ((63, 3000, 700), (64, 100000, 20000)):
+        slots, f = streams.record_rows(seed, n, width)
+        rf = tuple(x.to(cuda) for x in _torch_fields(f))
+        s = torch.from_numpy(slots).to(cuda)
+        stats = torch.empty(slots.shape[0], dtype=torch.int32, device=cuda)
+        got = te.expand(s, rf, n, stats)
+        assert torch.equal(got, te._expand_plain(s, rf, n))
+        assert torch.equal((stats < 0).cpu(), ~te._well_formed(rf, n).cpu())

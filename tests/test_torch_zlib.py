@@ -5,7 +5,9 @@ the replay against zlib.decompress on rows only the port accepts, err on
 every corruption in both — then decode, and zlib chunks (written by the
 host engine, as in the JAX package) through the port's byte API. The
 JAX machine compiles once (about a minute on the CPU): one module-scoped
-call on the whole batch, shared by every case. All exact."""
+call on the whole batch, shared by every case. K6's lookup tables, built
+by the kernel's algorithm in plain PyTorch, decode every 15-bit peek as
+JAX's _decode_sym does (one small compile). All exact."""
 
 import zlib
 
@@ -223,14 +225,113 @@ def test_stored_split_decodes_on_the_host(rng):
     assert jeng.decompress_chunk(chunk) == data
 
 
+# ---------------------------------------------------------------------------
+# K6's lookup tables
+# ---------------------------------------------------------------------------
+
+_PEEKS = 1 << 15
+# code-length sets: name -> alphabet (0 literal/length, 1 distance, 2 code
+# length); the fixed tables, the dynamic tables of host-engine zlib rows,
+# and generated over-subscribed, incomplete, long-code and empty sets
+_SETS = {"fixed_ll": 0, "fixed_d": 1,
+         **{f"host{i}_{t}": a for i in range(3)
+            for t, a in (("cl", 2), ("ll", 0), ("d", 1))},
+         "oversub_ll": 0, "oversub_d": 1, "oversub_cl": 2,
+         "incomplete_ll": 0, "incomplete_d": 1, "incomplete_cl": 2,
+         "long_ll": 0, "long_d": 1, "single_d": 1, "empty_ll": 0}
+
+
+@pytest.fixture(scope="module")
+def code_length_sets():
+    """The lengths of every _SETS entry, from a seed through numpy."""
+    rng = np.random.default_rng(71)
+    out = {"fixed_ll": tz._FIXED_LL, "fixed_d": tz._FIXED_D}
+    for i, (ts_, clevel) in enumerate(((8, 1), (8, 5), (4, 9))):
+        data = np.frombuffer(make_buffer(rng, 32768, ts_, "lowentropy"),
+                             np.uint8)
+        lens = []
+        streams.deflate_blocks(thost.compress(data, 1 << 17, clevel), lens)
+        cl, ll, d = lens[0]
+        out.update({f"host{i}_cl": cl, f"host{i}_ll": ll, f"host{i}_d": d})
+    for name, S, top in (("ll", 288, 15), ("d", 30, 15), ("cl", 19, 7)):
+        out[f"oversub_{name}"] = rng.integers(1, top + 1, S)
+        sparse = np.zeros(S, np.int64)
+        sparse[rng.choice(S, 5, replace=False)] = rng.integers(2, top + 1, 5)
+        out[f"incomplete_{name}"] = sparse
+    for name, S in (("ll", 288), ("d", 30)):
+        lens = np.zeros(S, np.int64)
+        pick = rng.permutation(S)
+        lens[pick[:11]] = np.arange(1, 12)
+        lens[pick[11:27]] = 15                  # complete, 16 codes of 15 bits
+        out[f"long_{name}"] = lens
+    out["single_d"] = np.eye(30, dtype=np.int64)[7]
+    out["empty_ll"] = np.zeros(288, np.int64)
+    return {k: np.asarray(v, np.int64) for k, v in out.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_decode_all():
+    """JAX's canonical decode (_build_table, _decode_sym at 15 bits) of
+    every 15-bit peek, for one set of lengths padded to 288: one
+    compile. Lengths of the code-length code are at most 7, so its
+    15-bit decode equals the 7-bit one of the machine."""
+    @jax.jit
+    def f(L):
+        first, cnt, offs, symtab = jz._build_table(L, 15, 288)
+
+        def bc(t):
+            return jnp.broadcast_to(t, (_PEEKS,) + t.shape[1:])
+
+        return jz._decode_sym(jnp.arange(_PEEKS, dtype=jnp.int32), bc(first),
+                              bc(cnt), bc(offs), bc(symtab), 15)
+
+    def run(L):
+        pad = np.zeros((1, 288), np.int32)
+        pad[0, :len(L)] = L
+        return tuple(np.asarray(a) for a in f(jnp.asarray(pad)))
+
+    return run
+
+
+@pytest.mark.parametrize("name", list(_SETS))
+def test_lookup_table_matches_jax_decode(name, code_length_sets,
+                                         jax_decode_all):
+    """K6's table rule (codec_zlib._lookup_table and _lookup_decode, the
+    kernel's algorithm in plain PyTorch) gives JAX's symbol and code
+    length for every 15-bit peek, on valid, over-subscribed, incomplete
+    and empty codes, codes past the 10-bit table included; length and
+    distance entries carry the RFC 1951 extra bits and bases."""
+    L, alpha = code_length_sets[name], _SETS[name]
+    want_sym, want_len = jax_decode_all(L)
+    tab, canon = tz._lookup_table(torch.from_numpy(L), alpha)
+    sym, ln, ext, base = (t.numpy() for t in tz._lookup_decode(
+        tab, canon, alpha, torch.arange(_PEEKS)))
+    assert np.array_equal(ln, want_len)
+    assert np.array_equal(sym, want_sym)
+    if name.startswith("long"):
+        assert (ln > tz._LOOKUP_BITS).any()
+    if alpha == 0:
+        m = (ln > 0) & (sym >= 257) & (sym <= 285)
+        i = np.clip(sym - 257, 0, 28)
+        assert np.array_equal(ext, np.where(m, tz._LEXTRA[i], 0))
+        assert np.array_equal(base, np.where(m, tz._LBASE[i], 0))
+    elif alpha == 1:
+        m = (ln > 0) & (sym < 30)
+        i = np.clip(sym, 0, 29)
+        assert np.array_equal(ext, np.where(m, tz._DEXTRA[i], 0))
+        assert np.array_equal(base, np.where(m, tz._DBASE[i], 0))
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_generated_streams(cuda):
     """K6 against its plain version on the generated rows of every card
     case at the default budget (tape, tlen, records, dist, uni, ok,
-    tolerance 0), and K6 + K1 at the escalated budget against
-    zlib.decompress."""
+    tolerance 0): every strategy, codes past the 10-bit lookup table
+    ("longcodes"), the over-subscribed and incomplete codes of "oversub"
+    and of the one-byte flips, random rows; and K6 + K1 at the escalated
+    budget against zlib.decompress."""
     for seed, n, width in streams.ZLIB_CARD_CASES:
-        buf, cs, kinds = streams.zlib_rows(seed, n, width)
+        buf, cs, kinds = streams.zlib_rows(seed, n, width, garbage=8)
         b, c = torch.from_numpy(buf), torch.from_numpy(cs)
         k = _np(tz.fsm_walk(b.to(cuda), c.to(cuda), n, tz.default_events(n)))
         p = _np(tz.fsm_walk(b, c, n, tz.default_events(n)))
@@ -239,8 +340,9 @@ def test_kernel_matches_plain_on_generated_streams(cuda):
         out, _, err = tz.decode(b.to(cuda), c.to(cuda), n, tz.high_events(n))
         ok = ~err.cpu().numpy()
         accepted = streams.ZLIB_VALID + ("dense",) + streams.ZLIB_ODD
-        assert np.array_equal(ok, [k in accepted for k in kinds])
-        for i in np.nonzero(ok)[0]:
+        nk = len(streams.ZLIB_KINDS)
+        assert np.array_equal(ok[:nk], [k in accepted for k in kinds[:nk]])
+        for i in np.nonzero(ok[:nk])[0]:
             if kinds[i] not in streams.ZLIB_ODD:
                 assert out[i].cpu().numpy().tobytes() == zlib.decompress(
                     bytes(buf[i, :cs[i]]))
