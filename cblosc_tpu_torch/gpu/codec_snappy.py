@@ -140,6 +140,99 @@ def _walk_plain(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
     return (kind, arg, dst, ln), dist.to(I32), uni, ok
 
 
+# ---------------------------------------------------------------------------
+# K5's split, in plain PyTorch (tests only): the tag tables and the chain
+# ---------------------------------------------------------------------------
+
+def _tag_at(tag, b1, b2, b3, b4, p, cs):
+    """The tag that would start at position p, from its five bytes: its
+    successor delta, output length, argument (a literal's stream offset,
+    a copy's offset), whether it is a copy, and whether it errs without
+    regard to the output so far (a set fourth length byte, offset 0, a
+    token past csize)."""
+    typ, base = tag & 3, tag >> 2
+    lit = typ == 0
+    extra = torch.clamp(base - 59, 0, 4)
+    ext_val = (b1 | torch.where(extra >= 2, b2 << 8, 0)
+               | torch.where(extra >= 3, b3 << 16, 0))
+    lit_len = torch.where(extra == 0, base + 1, ext_val + 1)
+    ipl = p + 1 + extra
+    c1, c2 = typ == 1, typ == 2
+    clen = torch.where(c1, (base & 7) + 4, base + 1)
+    off = torch.where(c1, ((base >> 3) << 8) | b1,
+                      b1 | (b2 << 8) | torch.where(c2, 0, b3 << 16))
+    cdelta = torch.where(c1, 2, torch.where(c2, 3, 5))
+    delta = torch.where(lit, 1 + extra + lit_len, cdelta)
+    perr = torch.where(
+        lit, ((extra == 4) & (b4 != 0)) | (ipl + lit_len > cs),
+        ((typ == 3) & (b4 != 0)) | (off == 0) | (p + cdelta > cs))
+    return (delta, torch.where(lit, lit_len, clen), torch.where(lit, ipl, off),
+            ~lit, perr)
+
+
+def _tag_tables(slots: torch.Tensor, csizes: torch.Tensor):
+    """K5's first half: the tag at every position of every row, as its
+    windows evaluate them (bytes at or past min(csize, W) read 0):
+    (delta, len, arg, copy, perr), each (N, W)."""
+    N, W = slots.shape
+    cs = csizes.to(I64)
+    byte = structured.byte_reader(slots, cs)
+    rows = torch.arange(N, device=slots.device)
+    p = torch.arange(W, device=slots.device)[None, :].expand(N, W)
+    b = [byte(rows, p + j) for j in range(5)]
+    return _tag_at(*b, p, cs[:, None])
+
+
+def _walk_split(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
+                E: int):
+    """K5's function as the kernel splits it (tests only): the preamble,
+    then the chain of real tags through _tag_tables, one tag of every
+    live row a step, with the checks that need the output so far (offset
+    above op, output past out_len) and the budget. Outputs as
+    _walk_plain's."""
+    N, W = slots.shape
+    dev = slots.device
+    cs = csizes.to(I64)
+    tabs = _tag_tables(slots, csizes)
+    kind, arg, dst, ln = structured.empty_records(N, E, dev)
+    nv, pre_err = _preamble(slots, cs, out_len)
+    live = cs > 0
+    t = nv.clone()
+    op, dist, cnt = (torch.zeros(N, dtype=I64, device=dev) for _ in range(3))
+    uni = torch.ones(N, dtype=torch.bool, device=dev)
+    err, fin = live & pre_err, ~live
+    while True:
+        r = torch.nonzero(~(err | fin)).flatten()
+        if r.numel() == 0:
+            break
+        tr, opr, c = t[r], op[r], cnt[r]
+        inside = tr < W
+        # past the row every byte reads 0: a 1-byte literal
+        z = torch.zeros_like(tr)
+        far = _tag_at(z, z, z, z, z, tr, cs[r])
+        d, L, a, cp, pe = (torch.where(inside, f[r, torch.clamp(tr, max=W - 1)],
+                                       g) for f, g in zip(tabs, far))
+        e = pe | (opr + L > out_len) | (cp & (a > opr)) | (c >= E)
+        g = ~e
+        rg, cg = r[g], c[g]
+        kind[rg, cg] = cp[g].to(I32)
+        arg[rg, cg] = a[g].to(I32)
+        dst[rg, cg] = opr[g].to(I32)
+        ln[rg, cg] = L[g].to(I32)
+        cnt[rg] = cg + 1
+        t[rg] = (tr + d)[g]
+        op[rg] = (opr + L)[g]
+        dm = g & cp
+        dr = dist[r]
+        d2 = torch.where(dr == 0, a, dr)
+        dist[r] = torch.where(dm, d2, dr)
+        uni[r] = uni[r] & ~(dm & (a != d2))
+        err[r] = e
+        fin[r] = g & (tr + d >= cs[r])
+    ok = ~err & (op == out_len)
+    return (kind, arg, dst, ln), dist.to(I32), uni, ok
+
+
 def decode(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
            maxrec_hint: int = 0):
     """Decode batched snappy streams via the structured machine.

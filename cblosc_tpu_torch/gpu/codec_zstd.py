@@ -249,7 +249,7 @@ def _huf_decode(peek11, K, hbase, hcnt, hoffs, hsymtab):
 # ---------------------------------------------------------------------------
 
 def fsm_walk(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
-             maxev: int):
+             maxev: int, stats: torch.Tensor | None = None):
     """Parse a batch of zstd frames into a literal tape and compacted
     records.
 
@@ -260,19 +260,28 @@ def fsm_walk(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
     (kind, arg, dst, len), valid records first and kind -1 after, ok
     whether the row's frame ended at out_len within the budget of
     event_slots(maxev) events and record_cap records. Launches K7 on a
-    CUDA tensor."""
+    CUDA tensor. stats, an int32 (N,) tensor on the slots' device,
+    receives per row the sequences the kernel's decoder took (the
+    split's count, :func:`_fsm_walk_split`, on a CPU tensor)."""
     E = event_slots(maxev)
     if not slots.is_cuda:
+        if stats is not None:
+            stats.copy_(_fsm_walk_split(slots, csizes, out_len, E)[4])
         return _fsm_walk_plain(slots, csizes, out_len, E)
-    return _launch(slots, csizes, out_len, E)
+    return _launch(slots, csizes, out_len, E, stats)
 
 
-def _launch(slots: torch.Tensor, csizes: torch.Tensor, out_len: int, E: int):
+def _launch(slots: torch.Tensor, csizes: torch.Tensor, out_len: int, E: int,
+            stats: torch.Tensor | None = None):
     kernels.require(slots, "slots", U8, 2)
     kernels.require(csizes, "csizes", I32, 1)
     N, W = slots.shape
     if csizes.shape[0] != N or csizes.device != slots.device:
         raise ValueError("csizes must be (N,) on the slots' device")
+    if stats is not None:
+        kernels.require(stats, "stats", I32, 1)
+        if stats.shape[0] != N or stats.device != slots.device:
+            raise ValueError("stats must be (N,) on the slots' device")
     dev = slots.device
     RC = record_cap(out_len)
     # the kernel writes every column: tape zeros past tlen, kind -1 and
@@ -285,7 +294,7 @@ def _launch(slots: torch.Tensor, csizes: torch.Tensor, out_len: int, E: int):
         slots.data_ptr(), N, W, csizes.data_ptr(), out_len, E, RC,
         tape.data_ptr(), tlen.data_ptr(), kind.data_ptr(), arg.data_ptr(),
         dst.data_ptr(), ln.data_ptr(), ok.data_ptr(),
-        kernels.stream_ptr(slots))
+        0 if stats is None else stats.data_ptr(), kernels.stream_ptr(slots))
     kernels.check("zstd_walk", code)
     return tape, tlen, (kind, arg, dst, ln), ok
 
@@ -863,6 +872,468 @@ def _fsm_walk_plain(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
     for f in (arg, dst, ln):
         f[~ok] = 0
     return tape, tlen, (kind, arg, dst, ln), ok
+
+
+# ---------------------------------------------------------------------------
+# K7's split, in plain PyTorch (tests only): the decoder and the flush
+# ---------------------------------------------------------------------------
+
+class _RowErr(Exception):
+    """The row errs: tlen 0, no records, a zero tape."""
+
+
+class _Bits:
+    """One row as an integer: bytes at or past the width and bits below
+    bit 0 read 0."""
+
+    def __init__(self, row: torch.Tensor):
+        self.W = row.numel()
+        self.v = int.from_bytes(row.cpu().numpy().tobytes(), "little")
+
+    def byte(self, x: int) -> int:
+        return (self.v >> (8 * x)) & 255 if 0 <= x < self.W else 0
+
+    def bits(self, q: int, n: int) -> int:
+        v = self.v >> q if q >= 0 else self.v << -q
+        return v & ((1 << n) - 1)
+
+    def back(self, q: int, n: int) -> int:
+        """bits [q - n, q): a backward stream read."""
+        return self.bits(q - n, n)
+
+
+def _seq_decode(rd: _Bits, q: int, q0: int, nbseq: int, logs, tabs):
+    """The decoder's half of a sequence section (one row): from the
+    bitstream's last bit q down to the section's first bit q0, each
+    sequence's (ofv, ll, ml), with only the checks that decide how it
+    decodes (a code out of range, the cursor below q0 after a state
+    update). Returns (ofv, ll, ml) int64 tensors, stop (a check failed)
+    and q, the cursor after the last sequence. tabs[tid] for table ids
+    1-3 (LL, OF, ML): (sym, nb, base) lists of the table's cells."""
+    lll, ofl, mll = logs[1], logs[2], logs[3]
+    (lsym, lnb, lba), (osym, onb, oba), (msym, mnb, mba) = tabs[1:4]
+    lls = rd.back(q, lll)
+    ofs = rd.back(q - lll, ofl)
+    mls = rd.back(q - lll - ofl, mll)
+    q -= lll + ofl + mll
+    out = ([], [], [])
+    stop = q < q0
+    left = nbseq
+    while not stop and left > 0:
+        ofc, mlc, llc = osym[ofs], msym[mls], lsym[lls]
+        if ofc > 25 or mlc > 52 or llc > 35:
+            stop = True
+            break
+        mlb, llb = int(_ML_BITS[mlc]), int(_LL_BITS[llc])
+        p1 = q - ofc
+        p2 = p1 - mlb
+        p3 = p2 - llb
+        out[0].append((1 << ofc) + rd.back(q, ofc))
+        out[1].append(int(_LL_BASE[llc]) + rd.back(p2, llb))
+        out[2].append(int(_ML_BASE[mlc]) + rd.back(p1, mlb))
+        left -= 1
+        if left == 0:
+            q = p3
+            break
+        p4 = p3 - lnb[lls]
+        p5 = p4 - mnb[mls]
+        nxt = (lba[lls] + rd.back(p3, lnb[lls]),
+               mba[mls] + rd.back(p4, mnb[mls]),
+               oba[ofs] + rd.back(p5, onb[ofs]))
+        q = p5 - onb[ofs]
+        lls, mls, ofs = nxt
+        stop = q < q0
+    return (*(torch.tensor(a, dtype=I64) for a in out), stop, q)
+
+
+def _seq_flush(ofv: torch.Tensor, ll: torch.Tensor, ml: torch.Tensor, rep,
+               op: int, lpos: int, lrsz: int, out_len: int, lit):
+    """The flush's half (one row): the decoded sequences against the row
+    so far. The repeat-offset machine (4.2.2, serial over the sequences,
+    rep the three offsets before them), the literal and output positions
+    by prefix sums, the checks of _fsm_walk's sequence mode (a zero
+    offset, literals past the section, output past out_len, an offset
+    beyond the output), and the records of each sequence in order: its
+    literal run by the literal type lit = (ltype, lbase, lsrc, TW), then
+    its match. Returns (records (R, 4) int64, rep, op, lpos), or raises
+    _RowErr when a check fails (which one does not matter: the row
+    errs)."""
+    n = ofv.numel()
+    off = torch.zeros(n, dtype=I64)
+    r1, r2, r3 = rep
+    for j, (v, l) in enumerate(zip(ofv.tolist(), ll.tolist())):
+        if v > 3:
+            r1, r2, r3 = v - 3, r1, r2
+        else:
+            idx = v - 1 + (l == 0)
+            o = (r1, r2, r3, r1 - 1)[idx]
+            if o <= 0:
+                raise _RowErr
+            if idx >= 2:
+                r3 = r2
+            if idx >= 1:
+                r1, r2 = o, r1
+        off[j] = r1
+    lp = lpos + torch.cumsum(ll, 0) - ll
+    o = op + torch.cumsum(ll + ml, 0) - ll - ml
+    bad = (lp + ll > lrsz) | (o + ll + ml > out_len) | (off > o + ll)
+    if bool(bad.any()):
+        raise _RowErr
+    ltype, lbase, lsrc, TW = lit
+    rle = ltype == 1
+    src = lbase + lp if ltype >= 2 else TW + lsrc + lp
+    one = torch.ones_like(ll)
+    # per sequence up to three records: literal run, RLE tail, match
+    cand = torch.stack([
+        torch.stack([0 * one, TW + lsrc + 0 * lp if rle else src, o,
+                     one if rle else ll], 1),
+        torch.stack([one, one, o + 1, ll - 1], 1),
+        torch.stack([one, off, o + ll, ml], 1)], 1)
+    keep = torch.stack([ll > 0, (ll > 1) & rle, ml > 0], 1)
+    recs = cand[keep]
+    return (recs, (r1, r2, r3), op + int((ll + ml).sum()),
+            lpos + int(ll.sum()))
+
+
+class _SplitWalk:
+    """K7's walk of one row as the kernel splits it: the frame machine
+    (headers, table descriptions, Huffman literals), each sequence
+    section through _seq_decode and then _seq_flush. Raises _RowErr where
+    the row errs."""
+
+    def __init__(self, row: torch.Tensor, cs: int, out_len: int, E: int):
+        self.rd, self.cs, self.out_len, self.E = _Bits(row), cs, out_len, E
+        self.TW, self.RC = out_len, record_cap(out_len)
+        self.op = self.nev = self.nseq = 0
+        self.tape, self.recs = [], []
+        self.rep = (1, 4, 8)
+        self.tabs = [None] * 4
+        self.huf = None             # (K, sym list, nb list) of the last tree
+
+    def emit(self, k, a, d, n):
+        if self.nev >= self.E or len(self.recs) >= self.RC:
+            raise _RowErr
+        self.recs.append((k, a, d, n))
+        self.nev += 1
+
+    def emit_lits(self, lit, lpos, ll):
+        ltype, lbase, lsrc, TW = lit
+        rle = ltype == 1
+        a = lbase + lpos if ltype >= 2 else TW + lsrc + lpos
+        if ll > 0:
+            self.emit(0, TW + lsrc if rle else a, self.op, 1 if rle else ll)
+        if rle and ll > 1:
+            self.emit(1, 1, self.op + 1, ll - 1)
+
+    def ncount(self, ncbp, tid):
+        """A normalized-count description at bit ncbp: (counts, acc, the
+        byte after it)."""
+        rd, maxsym = self.rd, _MAXSYM[tid]
+        acc = rd.bits(ncbp, 4) + 5
+        if acc > _MAXLOG[tid]:
+            raise _RowErr
+        counts = [0] * _NC_CAP
+        rem, thr, nbits, num, p0 = (1 << acc) + 1, 1 << acc, acc + 1, 0, False
+        ncbp += 4
+        while True:
+            if p0:
+                while True:
+                    fl = rd.bits(ncbp, 2)
+                    num += fl
+                    ncbp += 2
+                    if fl < 3 or num > maxsym + 1:
+                        break
+                p0 = False
+                if num > maxsym + 1:
+                    raise _RowErr
+            else:
+                maxv = 2 * thr - 1 - rem
+                sb, bb = min(max(nbits - 1, 0), 10), min(max(nbits, 0), 11)
+                vsm = rd.bits(ncbp, 10) & ((1 << sb) - 1)
+                vbig = rd.bits(ncbp, 11) & ((1 << bb) - 1)
+                small = vsm < maxv
+                cval = (vsm if small else vbig if vbig < thr
+                        else vbig - maxv) - 1
+                ncbp += nbits - 1 if small else nbits
+                rem -= abs(cval)
+                if num >= _NC_CAP:
+                    raise _RowErr
+                counts[num] = cval
+                num += 1
+                p0 = cval == 0
+            while rem < thr and thr > 1:
+                nbits -= 1
+                thr >>= 1
+            if rem <= 1 or num > maxsym:
+                if rem != 1:
+                    raise _RowErr
+                return counts, acc, (ncbp + 7) >> 3
+
+    def fse(self, tid, counts, acc):
+        sym, nb, base, err = _fse_build(torch.tensor([counts]),
+                                        torch.tensor([acc]))
+        if bool(err[0]):
+            raise _RowErr
+        self.tabs[tid] = tuple(t[0, :_TABW[tid]].tolist()
+                               for t in (sym, nb, base))
+
+    def tree(self, pos, lcend):
+        """A Huffman tree description at pos: the direct table; returns the
+        byte after it."""
+        rd = self.rd
+        hby = rd.byte(pos)
+        warr = [0] * 256
+        if hby >= 128:
+            nw = hby - 127
+            for i in range(nw):
+                b = rd.byte(pos + 1 + (i >> 1))
+                warr[i] = b >> 4 if i % 2 == 0 else b & 15
+            pos += 1 + ((nw + 1) >> 1)
+        else:
+            hwend = pos + 1 + hby
+            if hwend > lcend or hby < 1:
+                raise _RowErr
+            counts, wlog, pos = self.ncount((pos + 1) * 8, 0)
+            self.fse(0, counts, wlog)
+            wsym, wnb, wbase = self.tabs[0]
+            lb = rd.byte(hwend - 1)
+            if lb == 0 or hwend <= pos:
+                raise _RowErr
+            hwp = (hwend - 1) * 8 + int(lb).bit_length() - 1
+            hwp0 = pos * 8
+            st = [rd.back(hwp, wlog), rd.back(hwp - wlog, wlog)]
+            hwp -= 2 * wlog
+            widx = 0
+            while True:
+                if widx >= 254:
+                    raise _RowErr
+                e = widx & 1
+                c = min(max(st[e], 0), 63)
+                warr[widx] = wsym[c]
+                nst = wbase[c] + rd.back(hwp, wnb[c])
+                hpn = hwp - wnb[c]
+                if hpn < hwp0:
+                    warr[widx + 1] = wsym[min(max(st[e ^ 1], 0), 63)]
+                    nw = widx + 2
+                    break
+                st[e] = nst
+                hwp = hpn
+                widx += 1
+            pos = hwend
+        K, hbase, hcnt, hoffs, hsym, herr = _huf_build(
+            torch.tensor([warr]), torch.tensor([nw]))
+        if bool(herr[0]):
+            raise _RowErr
+        k = int(K[0])
+        peeks = (torch.arange(2048)[None, :] << (11 - k)) & 2047
+        dsym, dnb = _huf_decode(peeks, K, hbase, hcnt, hoffs, hsym)
+        self.huf = (k, dsym[0].tolist(), dnb[0].tolist())
+        return pos
+
+    def streams(self, four, sbase, tot, j, lrsz):
+        """The 1 or 4 Huffman streams of a literal section onto the tape."""
+        rd = self.rd
+        k, hsym, hnb = self.huf
+        r13 = (lrsz + 3) >> 2
+        sizes = [j[0], j[1], j[2], tot - sum(j)] if four else [tot]
+        rems = [r13, r13, r13, lrsz - 3 * r13] if four else [lrsz]
+        out = []
+        start = sbase
+        for size, r in zip(sizes, rems):
+            sbit = start * 8
+            sp = ((start + size - 1) * 8 + max(rd.byte(start + size - 1), 1)
+                  .bit_length() - 1) if r > 0 else sbit
+            for _ in range(r):
+                v = rd.back(sp, 11) >> (11 - k)
+                if hnb[v] == 0:
+                    raise _RowErr
+                out.append(hsym[v])
+                sp -= hnb[v]
+            if sp != sbit:
+                raise _RowErr
+            start += size
+        self.tape += out
+
+    def run(self):
+        rd, cs, out_len, TW = self.rd, self.cs, self.out_len, self.TW
+        if cs <= 0:
+            raise _RowErr
+        magic = sum(rd.byte(j) << (8 * j) for j in range(4))
+        fhd = rd.byte(4)
+        if magic != 0xFD2FB528 or fhd & 8 or fhd & 3:
+            raise _RowErr
+        single, fl = (fhd >> 5) & 1, fhd >> 6
+        pos = 6 - single + (single, 2, 4, 8)[fl]
+        logs = [0, 0, 0, 0]
+        while True:
+            bh = rd.byte(pos) | rd.byte(pos + 1) << 8 | rd.byte(pos + 2) << 16
+            last, btype, bsize = bh & 1, (bh >> 1) & 3, bh >> 3
+            if btype == 3 or pos + 3 > cs:
+                raise _RowErr
+            if btype <= 1:
+                if btype == 0 and (self.op + bsize > out_len
+                                   or pos + 3 + bsize > cs):
+                    raise _RowErr
+                if btype == 1 and (self.op + bsize > out_len or pos + 4 > cs
+                                   or bsize < 1):
+                    raise _RowErr
+                if btype == 0 and bsize > 0:
+                    self.emit(0, TW + pos + 3, self.op, bsize)
+                if btype == 1:
+                    self.emit(0, TW + pos + 3, self.op, 1)
+                    if bsize > 1:
+                        self.emit(1, 1, self.op + 1, bsize - 1)
+                self.op += bsize
+                pos += 3 + bsize if btype == 0 else 4
+                if last:
+                    break
+                continue
+            if pos + 3 + bsize > cs or bsize < 2:
+                raise _RowErr
+            bend = pos + 3 + bsize
+            pos += 3
+            b = [rd.byte(pos + i) for i in range(5)]
+            lt, sf = b[0] & 3, (b[0] >> 2) & 3
+            lsrc = lbase = 0
+            if lt <= 1:
+                h = 1 if (sf & 1) == 0 else 2 if sf == 1 else 3
+                rs = (b[0] >> 3 if h == 1 else
+                      (b[0] >> 4) | (b[1] << 4) | ((b[2] << 12) if h == 3 else 0))
+                adv = h + rs if lt == 0 else h + 1
+                if rs > out_len or pos + adv > bend:
+                    raise _RowErr
+                lrsz, lsrc = rs, pos + h
+                pos += adv
+            else:
+                rs = ((b[0] >> 4) | ((b[1] & 0x3F) << 4) if sf <= 1 else
+                      (b[0] >> 4) | (b[1] << 4) | ((b[2] & 3) << 12) if sf == 2
+                      else (b[0] >> 4) | (b[1] << 4) | ((b[2] & 0x3F) << 12))
+                csz = ((b[1] >> 6) | (b[2] << 2) if sf <= 1 else
+                       (b[2] >> 2) | (b[3] << 6) if sf == 2 else
+                       (b[2] >> 6) | (b[3] << 2) | (b[4] << 10))
+                h = 3 if sf <= 1 else 4 if sf == 2 else 5
+                lcend = pos + h + csz
+                if (rs > out_len or lcend > bend or csz < 1
+                        or (lt == 3 and self.huf is None)):
+                    raise _RowErr
+                lrsz = rs
+                pos += h
+                if lt == 2:
+                    pos = self.tree(pos, lcend)
+                four = sf != 0
+                j = [rd.byte(pos + i) | rd.byte(pos + i + 1) << 8
+                     for i in (0, 2, 4)]
+                sbase = pos + 6 if four else pos
+                tot = lcend - sbase
+                r13 = (lrsz + 3) >> 2
+                if four and (tot - sum(j) < 1 or min(j) < 1
+                             or lrsz - 3 * r13 < 0):
+                    raise _RowErr
+                if (tot < 1 or len(self.tape) + lrsz > TW
+                        or self.nev + lrsz > self.E):
+                    raise _RowErr
+                starts = ([sbase, sbase + j[0], sbase + j[0] + j[1],
+                           sbase + sum(j)] if four else [sbase])
+                sizes = [j[0], j[1], j[2], tot - sum(j)] if four else [tot]
+                rems = ([r13, r13, r13, lrsz - 3 * r13] if four else [lrsz])
+                for st_, sz, r in zip(starts, sizes, rems):
+                    if r > 0 and (rd.byte(st_ + sz - 1) == 0 or sz < 1):
+                        raise _RowErr
+                lbase = len(self.tape)
+                self.streams(four, sbase, tot, j, lrsz)
+                self.nev += lrsz
+                pos = lcend
+            lit = (lt, lbase, lsrc, TW)
+            n0, n1, n2 = (rd.byte(pos + i) for i in range(3))
+            nbseq = (n0 if n0 < 128 else ((n0 - 128) << 8) + n1 if n0 < 255
+                     else n1 + (n2 << 8) + 0x7F00)
+            nbadv = 1 if n0 < 128 else 2 if n0 < 255 else 3
+            if nbseq == 0:
+                if pos + nbadv != bend or self.op + lrsz > out_len:
+                    raise _RowErr
+                self.emit_lits(lit, 0, lrsz)
+                self.op += lrsz
+            else:
+                smod = rd.byte(pos + nbadv)
+                if smod & 3:
+                    raise _RowErr
+                pos += nbadv + 1
+                for tid, name in ((1, "ll"), (2, "of"), (3, "ml")):
+                    msel = (smod >> (8 - 2 * tid)) & 3
+                    if msel == 0:
+                        sym, nb, base, log = _PRE[name]
+                        self.tabs[tid] = tuple(a[:_TABW[tid]].tolist()
+                                               for a in (sym, nb, base))
+                        logs[tid] = log
+                    elif msel == 1:
+                        rsym = rd.byte(pos)
+                        if rsym > _MAXSYM[tid]:
+                            raise _RowErr
+                        L = _TABW[tid]
+                        self.tabs[tid] = ([rsym] * L, [0] * L, [0] * L)
+                        logs[tid] = 0
+                        pos += 1
+                    elif msel == 2:
+                        counts, acc, pos = self.ncount(pos * 8, tid)
+                        self.fse(tid, counts, acc)
+                        logs[tid] = acc
+                lb = rd.byte(bend - 1)
+                if lb == 0 or bend <= pos:
+                    raise _RowErr
+                q0 = pos * 8
+                ofv, ll, ml, stop, q = _seq_decode(
+                    rd, (bend - 1) * 8 + lb.bit_length() - 1, q0, nbseq, logs,
+                    self.tabs)
+                if stop:
+                    raise _RowErr
+                recs, self.rep, self.op, lpos = _seq_flush(
+                    ofv, ll, ml, self.rep, self.op, 0, lrsz, out_len, lit)
+                self.recs += [tuple(r) for r in recs.tolist()]
+                self.nev += recs.shape[0]
+                self.nseq += ofv.numel()
+                if self.nev > self.E or len(self.recs) > self.RC:
+                    raise _RowErr
+                if q != q0 or self.op + (lrsz - lpos) > out_len:
+                    raise _RowErr
+                self.emit_lits(lit, lpos, lrsz - lpos)
+                self.op += lrsz - lpos
+            pos = bend
+            if last:
+                break
+        if self.op != out_len:
+            raise _RowErr
+
+
+def _fsm_walk_split(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
+                    E: int):
+    """K7's function as the kernel splits it, row by row in plain PyTorch
+    (tests only): _fsm_walk_plain's outputs, plus per row the sequences
+    the decoder took (valid on rows that are ok)."""
+    N = slots.shape[0]
+    RC = record_cap(out_len)
+    tape = torch.zeros((N, out_len), dtype=U8)
+    tlen = torch.zeros(N, dtype=I32)
+    kind, arg, dst, ln = structured.empty_records(N, RC, torch.device("cpu"))
+    ok = torch.zeros(N, dtype=torch.bool)
+    nseq = torch.zeros(N, dtype=I32)
+    for i in range(N):
+        w = _SplitWalk(slots[i], int(csizes[i]), out_len, E)
+        try:
+            w.run()
+        except _RowErr:
+            nseq[i] = w.nseq
+            continue
+        ok[i] = True
+        nseq[i] = w.nseq
+        tlen[i] = len(w.tape)
+        tape[i, :len(w.tape)] = torch.tensor(w.tape, dtype=U8)
+        if w.recs:
+            r = torch.tensor(w.recs, dtype=I32)
+            for f, c in zip((kind, arg, dst, ln), r.unbind(1)):
+                f[i, :r.shape[0]] = c
+    dev = slots.device
+    rf = tuple(f.to(dev) for f in (kind, arg, dst, ln))
+    return tape.to(dev), tlen.to(dev), rf, ok.to(dev), nseq.to(dev)
 
 
 # ---------------------------------------------------------------------------

@@ -53,9 +53,9 @@ _SIGS = {
     # the zlib walk also writes the literal tape and its length
     "zlib_walk": ("zlib_walk_launch", _WALK[:6] + [_P, _P] + _WALK[6:]),
     # the zstd walk: slots, N, W, csizes, out_len, E, RC, tape, tlen, kind,
-    # arg, dst, len, ok, stream
+    # arg, dst, len, ok, stats, stream
     "zstd_walk": ("zstd_walk_launch", [_P, _I, _I, _P, _I, _I, _I, _P, _P,
-                                       _P, _P, _P, _P, _P, _P]),
+                                       _P, _P, _P, _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

@@ -558,6 +558,35 @@ def snappy_rows(seed: int, out_len: int, width: int, garbage: int = 8):
     return buf, cs, len(valid), len(bad)
 
 
+SNAPPY_LONG_KINDS = ("lit4", "litwin")
+
+
+def snappy_long_literal_rows(seed: int, out_len: int, width: int):
+    """(buf, csizes, nvalid): streams whose literals leave the snappy walk
+    kernel's 128-position window. "lit4": literals of 200-2000 bytes with
+    a 4-byte length (the fourth byte 0), between short copies; "litwin":
+    literals of 129-1000 bytes with the least length encoding. One valid
+    row of each, then a one-byte corruption of each."""
+    rng = np.random.default_rng(seed)
+    valid = []
+    for kind in SNAPPY_LONG_KINDS:
+        w = _SnappyWriter(rng, out_len)
+        while len(w.out) < out_len:
+            room = out_len - len(w.out)
+            if len(w.out) == 0 or rng.random() < 0.5 or room < 4:
+                lo, hi = (200, 2000) if kind == "lit4" else (129, 1000)
+                n = min(room, int(rng.integers(lo, hi)))
+                w.literal(n, 4 if kind == "lit4" else 0)
+            else:
+                w.copy(min(int(rng.integers(4, 12)), room),
+                       int(rng.integers(1, min(len(w.out), 2047) + 1)), 1)
+        valid.append(bytes(w.stream))
+    rows = [(v, len(v)) for v in valid] + _corrupt_and_garbage(rng, valid,
+                                                                 width, 0)
+    buf, cs = _pack(rows, width)
+    return buf, cs, len(valid)
+
+
 # ---------------------------------------------------------------------------
 # zlib streams (blosc/blosc.c:469-496 wrap the library's one-shot calls)
 # ---------------------------------------------------------------------------
@@ -1101,6 +1130,36 @@ def zstd_bad(rng, out_len: int, kind: str) -> tuple:
     return bytes(good), len(good)
 
 
+ZSTD_RING_KINDS = ("seq_long", "multi_rep_tl")
+
+
+def zstd_ring_rows(seed: int, out_len: int, width: int):
+    """(buf, csizes, kinds): frames that reach the zstd walk kernel's
+    ring refills and carried tables. "seq_long": short matches drawn from
+    64 tokens of 3-5 bytes at level 19, a sequence bitstream longer than
+    2 KB (the kernel's whole ring); "multi_rep_tl": Huffman-coded bytes
+    and runs in 1 KB blocks at level 6, one frame of many blocks with
+    repeated sequence tables and treeless literals. Then a one-byte
+    corruption of each ("flip")."""
+    from ..ops.codecs import zstd_
+
+    rng = np.random.default_rng(seed)
+    toks = [rng.integers(0, 256, int(rng.integers(3, 6)), dtype=np.uint8)
+            .tobytes() for _ in range(64)]
+    d = b"".join(toks[int(i)] for i in rng.integers(0, 64, out_len))[:out_len]
+    valid = [zstd_.frame(d, 19)]
+    parts = []
+    while sum(map(len, parts)) < out_len:
+        parts.append((rng.integers(0, 16, 512, dtype=np.uint8) * 16).tobytes())
+        parts.append(np.repeat(rng.integers(0, 9, 32).astype(np.uint8),
+                               16).tobytes())
+    valid.append(zstd_.compress2_frame(b"".join(parts)[:out_len], 6, 10))
+    rows = [(v, len(v)) for v in valid] + _corrupt_and_garbage(rng, valid,
+                                                                 width, 0)
+    buf, cs = _pack(rows, width)
+    return buf, cs, ZSTD_RING_KINDS + ("flip",) * len(valid)
+
+
 def zstd_block_starts(frame: bytes) -> list:
     """Byte offsets of a frame's block headers."""
     fhd = frame[4]
@@ -1165,7 +1224,8 @@ def zstd_features(frame: bytes) -> set:
     "cmp_block"), literal types ("raw_lits", "rle_lits", "huf_1s",
     "huf_4s", "treeless"), Huffman weights ("w_direct", "w_fse"),
     sequence table modes ("seq_predef", "seq_rle", "seq_fse",
-    "seq_repeat"), "multi_block", "checksum", and "zero_run_flags_9" when
+    "seq_repeat"), "seq_stream_2k" (a sequence bitstream of more than
+    2048 bytes), "multi_block", "checksum", and "zero_run_flags_9" when
     an FSE count description holds a zero run of 9 or more 2-bit repeat
     flags (more than 24 zero counts), which the JAX machine rejects."""
     out = set()
@@ -1219,6 +1279,8 @@ def zstd_features(frame: bytes) -> set:
                 if run > 8:
                     out.add("zero_run_flags_9")
                 p += used
+        if pos + 3 + (bh >> 3) - p > 2048:
+            out.add("seq_stream_2k")
     return out
 
 

@@ -29,7 +29,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      also on one generated 128 KB row ("long_*"); they are held besides
      on host-engine rows (LZ4 at clevel 5 and 9, LZ4HC), generated
      streams with corruptions, and a token-dense row at the default and
-     the escalated budget. The zlib walk (zlib_walk) is held, tape and
+     the escalated budget; the snappy walk is timed at the escalated
+     budget too, with the ns a record on its densest row. The zlib walk
+     (zlib_walk) is held, tape and
      records included, on the non-dense live rows of the 4 MB synth
      zlib chunk (clevel 5, 128 KB splits) at the default budget and on
      generated zlib streams (every strategy, corruptions, one-byte flips,
@@ -52,7 +54,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      live rows of the 4 MB synth zstd chunks at clevels 1 and 5; K7 + K1
      replay every live row of those two chunks, and every valid
      generated frame up to 128 KB, to libzstd's bytes. It is timed on the
-     clevel-5 chunk's 16 live rows at the default budget;
+     clevel-5 chunk's 16 live rows at the default budget, with the
+     sequences of its longest row (the kernel's stats output) and the ns
+     a sequence;
   3. the main path: byte-API round trips (compress_ctx/decompress_ctx)
      on 4 MB buffers at clevel 1 (blosclz, lz4, lz4hc) plus a clevel-9
      blosclz, a clevel-5 LZ4, a snappy chunk, zlib chunks and zstd
@@ -79,7 +83,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      decompress_blocks at the default budget, verified and timed the
      same way, with the rows over the default budget and the rows the
      walk rejects even at the escalated one (the byte API would send
-     them to the host);
+     them to the host), and the zstd walk timed alone in one launch over
+     all their live rows;
   5. the kernels line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package, and exits
@@ -491,6 +496,17 @@ def phase_codec_walks(dev, chunk_bytes, snappy_chunk, reps):
     err = held(codec_snappy.walk, codec_snappy._walk_plain, cases,
                "snappy_walk")
     r["max_abs_err"] = max(err, r["max_abs_err"])
+    # the escalated budget, where every row walks: the densest row's
+    # records and the ns a record of the launch, which lasts as long as
+    # that row
+    hmr = structured.high_records(sn)
+    high_call = lambda: codec_snappy.walk(s_rows, s_cs, sn, hmr)  # noqa: E731
+    hdev, hsrc = _device_ms(dev, high_call, "::snappy_walk")
+    per_row = (sk[0][0] >= 0).sum(dim=1)
+    r.update(high_ms=_ms(dev, high_call, reps), high_device_ms=hdev,
+             high_device_ms_source=hsrc, densest_records=int(per_row.max()),
+             high_records=int(per_row.sum()),
+             ns_per_record=hdev * 1e6 / max(int(per_row.max()), 1))
     check(r["max_abs_err"] == 0, "snappy_walk kernel differs from its "
           f"plain version ({r['max_abs_err']})")
     for name, shape in (("lz4_walk", f"{m_rows.shape[0]} live rows of the "
@@ -503,6 +519,12 @@ def phase_codec_walks(dev, chunk_bytes, snappy_chunk, reps):
         print(f"kernel {name} inputs: {shape}, {r['records']} records, "
               f"{r['accepted']} rows accepted at the default budget; held "
               f"on host-engine, generated and token-dense rows too")
+    r = out["snappy_walk"]
+    print(f"kernel snappy_walk at the escalated budget ({hmr} records): "
+          f"{r['high_records']} records, the densest row {r['densest_records']};"
+          f" {r['high_ms']:.4f} ms per call alone; {r['high_device_ms']:.4f} ms "
+          f"on the card ({_device_label(r['high_device_ms_source'])}), "
+          f"{r['ns_per_record']:.1f} ns a record on the densest row")
     r = out["lz4_walk"]
     print(f"kernel lz4_walk on {r['long_rows']} generated {ln >> 10} KB "
           f"row ({r['long_records']} records, {r['long_accepted']} accepted): "
@@ -838,6 +860,8 @@ def phase_zstd_walk(dev, z1_chunk, z5_chunk, reps):
     nrec = int((k[2][0] >= 0).sum())
     lits = int(k[1].sum())
     accepted = int(k[3].sum())
+    seqs = torch.empty(N, dtype=torch.int32, device=r5.device)
+    codec_zstd.fsm_walk(r5, c5, n5, dflt, stats=seqs)
     check(accepted == N, "the clevel-5 chunk's rows must walk at the default "
           "budget")
     # K1 on the same rows, over [tape | stream], as the byte API places
@@ -856,12 +880,17 @@ def phase_zstd_walk(dev, z1_chunk, z5_chunk, reps):
         bound_ms=(int(c5.sum()) + 4 * N + lits + 16 * nrec + 5 * N)
         / HBM_BYTES_PER_S * 1e3,
         rows=N, records=nrec, tape_bytes=lits, accepted=accepted,
-        budget=dflt)
+        budget=dflt, sequences=int(seqs.sum()),
+        longest_row_sequences=int(seqs.max()),
+        ns_per_sequence=device_ms * 1e6 / max(int(seqs.max()), 1))
     print(f"kernel zstd_walk inputs: {N} live rows of the host engine's 4 MB "
           f"synth zstd chunk (clevel 5, out_len {n5}) at the default budget "
           f"({dflt} events): {lits} tape bytes, {nrec} records, {accepted} rows "
           f"accepted; plain {plain_ms[n5]:.1f} ms for 2 of them, "
-          f"{plain_ms[n1]:.1f} ms for 4 clevel-1 rows (on the host)")
+          f"{plain_ms[n1]:.1f} ms for 4 clevel-1 rows (on the host). "
+          f"{r['sequences']} sequences, the longest row "
+          f"{r['longest_row_sequences']}: {r['ns_per_sequence']:.1f} ns a "
+          "sequence on the card")
     print_k1_rows(e, "zstd", f"the {N} live rows of the 4 MB synth "
                   "clevel-5 zstd chunk (over [tape | stream])")
     return {"zstd_walk": r, "expand": e}
@@ -922,6 +951,22 @@ def phase_zstd_bench(dev, workset, chunk_bytes, reps, card, clevel):
     long_runs = sum("zero_run_flags_9" in streams.zstd_features(
         lrh[i, :lch[i]].tobytes()) for i in range(lrh.shape[0]))
     td = _ms(dev, dec, reps)
+    # K7 alone, one launch over every live row at the default budget (the
+    # decode launches it once per 64 MB group)
+    dflt = codec_zstd.default_events(neblock)
+    walk = lambda: codec_zstd.fsm_walk(l_rows, l_cs, neblock, dflt)  # noqa: E731
+    w_dev, w_src = _device_ms(dev, walk, "::zstd_walk")
+    wk = walk()
+    seqs = torch.empty(l_rows.shape[0], dtype=torch.int32, device=l_rows.device)
+    codec_zstd.fsm_walk(l_rows, l_cs, neblock, dflt, stats=seqs)
+    wN = l_rows.shape[0]
+    k7 = {"rows": wN, "ms": _ms(dev, walk, reps), "device_ms": w_dev,
+          "device_ms_source": w_src, "tape_bytes": int(wk[1].sum()),
+          "records": int((wk[2][0] >= 0).sum()),
+          "longest_row_sequences": int(seqs.max()),
+          "bound_ms": (int(l_cs.sum()) + 4 * wN + int(wk[1].sum())
+                       + 16 * int((wk[2][0] >= 0).sum()) + 5 * wN)
+          / HBM_BYTES_PER_S * 1e3}
     cbytes = sum(len(c) for c in chunks)
     print(json.dumps({
         "bench": "zstd synth sbits19 ts8", "codec": "zstd", "bytes": workset,
@@ -932,9 +977,10 @@ def phase_zstd_bench(dev, workset, chunk_bytes, reps, card, clevel):
         "rows_over_default_budget": over, "rows_to_host": host,
         "rows_with_long_zero_runs": long_runs,
         "events_budget": codec_zstd.default_events(neblock),
-        "decompress_launches": launches, "card": card,
+        "decompress_launches": launches, "zstd_walk_alone": k7, "card": card,
         "timer": "call time on the CUDA stream (events; includes host syncs)"
         if dev.type == "cuda" else "host clock (rehearsal)"}))
+    return {f"bench_cl{clevel}_{k}": v for k, v in k7.items()}
 
 
 def _pack_one(stream: bytes, width: int):
@@ -1333,7 +1379,8 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
                 chunk_bytes, reps, card, need=("lz4_walk",), code=C.LZ4)
     phase_zlib_bench(dev, workset, chunk_bytes, reps, card)
     for clevel in (5, 1):
-        phase_zstd_bench(dev, workset, chunk_bytes, reps, card, clevel)
+        stats["zstd_walk"].update(
+            phase_zstd_bench(dev, workset, chunk_bytes, reps, card, clevel))
     stamp("phase 4: 128 MB round trips and the 128 MB zlib and zstd decodes")
 
     src = {"expand": ("cblosc_tpu_torch/csrc/expand.cu",

@@ -1,8 +1,9 @@
 """PyTorch port of the snappy decoder vs cblosc_tpu.tpu.codec_snappy: the
 walk's records on every row the JAX walk accepts (K5's plain version),
-decode, and snappy chunks (written by the host engine, as in the JAX
-package) decoded through the port's byte API on the device path. All
-exact."""
+K5's split (the per-position tag tables, then the chain through them)
+against the plain walk and JAX, decode, and snappy chunks (written by
+the host engine, as in the JAX package) decoded through the port's byte
+API on the device path. All exact."""
 
 import numpy as np
 import pytest
@@ -101,6 +102,92 @@ def test_walk_matches_jax_on_generated_streams(seed, n, W):
     assert not pok[nvalid:nvalid + nbad].any()
 
 
+def _split_cases(seed, n, W, budget):
+    """Rows and record budget of a split test: the generated rows of a
+    case (the 8 KB ones padded to N_ROWS, sharing the JAX compile)."""
+    buf, cs, nvalid, nbad = streams.snappy_rows(seed, n, W)
+    if n == 8192:
+        buf, cs = np.pad(buf, ((0, N_ROWS - len(cs)), (0, 0))), \
+            np.pad(cs, (0, N_ROWS - len(cs)))
+    mr = tsn.max_records(n) if budget == "default" else ts.high_records(n)
+    return buf, cs, nvalid, nbad, mr
+
+
+def _assert_split(buf, cs, n, mr, jax=True):
+    """K5's split against the plain walk on every column, and against the
+    JAX walk on every row it accepts (at the default budget). Returns the
+    split's ok mask."""
+    b, c = torch.from_numpy(buf), torch.from_numpy(cs)
+    E = ts.record_slots(mr)
+    got = tsn._walk_split(b, c, n, E)
+    plain = tsn._walk_plain(b, c, n, E)
+    for x, y in zip(got[0] + got[1:], plain[0] + plain[1:]):
+        assert torch.equal(x, y)
+    if jax:
+        want = jax_walk(buf, cs, n, walk_batch=jsn._walk_batch, maxrec=mr)
+        assert_walk_matches_jax(want, got)
+    return got[3].numpy()
+
+
+@pytest.mark.parametrize("budget", ["default", "high"])
+@pytest.mark.parametrize("seed,n,W", streams.SNAPPY_CASES)
+def test_split_matches_plain_and_jax(seed, n, W, budget):
+    """K5's split (_tag_tables, then _walk_split's chain through them)
+    equals the plain walk on every column of the generated rows (valid,
+    error, corrupt and random) at the default and the escalated budget,
+    and JAX's walk on every row JAX accepts at the default budget."""
+    buf, cs, nvalid, nbad, mr = _split_cases(seed, n, W, budget)
+    ok = _assert_split(buf, cs, n, mr, jax=budget == "default")
+    assert ok[:nvalid].all() and not ok[nvalid:nvalid + nbad].any()
+
+
+def test_tag_tables_evaluate_every_position():
+    """_tag_tables at the positions the walk reaches: every delta at least
+    2, literals with 1-4 length bytes, copies of all three types, and the
+    tag-only errors (a set fourth length byte, offset 0) flagged."""
+    buf, cs, nvalid, _ = streams.snappy_rows(32, 8192, 9621)
+    delta, ln, arg, copy, perr = tsn._tag_tables(torch.from_numpy(buf),
+                                                 torch.from_numpy(cs))
+    assert (delta >= 2).all()
+    tag = torch.from_numpy(buf).to(torch.int64)
+    lit = (tag & 3) == 0
+    assert torch.equal(copy, ~lit)
+    for extra in range(1, 5):
+        sel = lit & ((tag >> 2) == 59 + extra)
+        assert sel.any()
+        assert torch.equal((delta - 1 - extra - ln)[sel],
+                           torch.zeros_like(ln[sel]))
+    assert perr.any() and not perr.all()
+
+
+@pytest.mark.parametrize("budget", ["default", "high"])
+def test_split_matches_plain_and_jax_on_long_literals(budget):
+    """Literals with a 4-byte length and literals longer than the kernel's
+    128-position window, and a corruption of each: the split equals the
+    plain walk, and JAX's walk where it accepts; the valid rows decode to
+    the host codec's bytes."""
+    n, W = 8192, 9621
+    buf, cs, nvalid = streams.snappy_long_literal_rows(34, n, W)
+    lens = []
+    for i in range(nvalid):
+        d, _ = tsn._tag_tables(torch.from_numpy(buf[i:i + 1]),
+                               torch.from_numpy(cs[i:i + 1]))[:2]
+        lens.append(int(d.max()))
+    assert min(lens) > 128
+    k = len(cs)
+    buf = np.pad(buf, ((0, N_ROWS - k), (0, 0)))
+    cs = np.pad(cs, (0, N_ROWS - k))
+    mr = tsn.max_records(n) if budget == "default" else ts.high_records(n)
+    ok = _assert_split(buf, cs, n, mr, jax=budget == "default")
+    assert ok[:nvalid].all()
+    out, _, err = tsn.decode(torch.from_numpy(buf[:nvalid]),
+                             torch.from_numpy(cs[:nvalid]), n)
+    assert not err.any()
+    for i in range(nvalid):
+        assert out[i].numpy().tobytes() == thost.decompress(
+            bytes(buf[i, :cs[i]]), n)
+
+
 def test_decode_matches_jax_on_uniform_rows(rng):
     """Rows with one copy offset (or none), which JAX's CPU placement
     takes: (out, produced, err) equal; a mixed row errs in JAX and
@@ -160,8 +247,11 @@ def test_snappy_chunks_decode_on_the_device_path(rng):
 def test_snappy_walk_kernel_matches_plain_on_generated_streams(seed, n, W,
                                                                cuda):
     """K5 against its plain version at the default and the high budget
-    (every column, the -1 tail included)."""
+    (every column, the -1 tail included), on the generated rows and on
+    rows of long literals (4-byte lengths, longer than a window)."""
     buf, cs, _, _ = streams.snappy_rows(seed, n, W)
+    lbuf, lcs, _ = streams.snappy_long_literal_rows(seed + 10, n, W)
+    buf, cs = np.concatenate([buf, lbuf]), np.concatenate([cs, lcs])
     b, c = torch.from_numpy(buf).to(cuda), torch.from_numpy(cs).to(cuda)
     for mr in (tsn.max_records(n), ts.high_records(n)):
         k = tsn.walk(b, c, n, mr)

@@ -2,11 +2,14 @@
 table builders, the frame walk (K7's plain version) on one batch of
 generated frames — tape, records and ok on every row the JAX machine
 accepts, the replay against libzstd on rows only the port accepts, err
-on every corruption in both — then decode, and zstd chunks (written by
-the host engine, as in the JAX package) through the port's byte API.
-The JAX side compiles three times (the walk at the default budget,
-decode at the escalated one, the two table builders), each once in a
-module-scoped fixture that every case shares. All exact."""
+on every corruption in both — K7's split (the decoder's sequence stream,
+then the flush) against the plain walk and JAX, then decode, and zstd
+chunks (written by the host engine, as in the JAX package) through the
+port's byte API. The JAX side compiles three times (the walk at the
+default budget, decode at the escalated one, the two table builders),
+each once and shared by every case (the walk's compile through
+_JAX_WALK, also for the split's rows, packed to the batch's shape). All
+exact."""
 
 import numpy as np
 import pytest
@@ -51,6 +54,17 @@ def _jax_walk(sl, cs, n, maxev):
     return tape, je.compact_records(rf), ok
 
 
+_JAX_WALK = jax.jit(_jax_walk, static_argnums=(2, 3))
+
+
+def _run_jax_walk(buf, cs):
+    """The JAX machine at the default budget, as numpy (tape, records,
+    ok); rows padded for its windows."""
+    tape, rf, ok = _JAX_WALK(jnp.asarray(np.pad(buf, ((0, 0), (0, _PAD)))),
+                             jnp.asarray(cs), N_OUT, jz.default_events(N_OUT))
+    return np.asarray(tape), tuple(np.asarray(f) for f in rf), np.asarray(ok)
+
+
 @pytest.fixture(scope="module")
 def batch():
     return streams.zstd_rows(SEED, N_OUT, WIDTH, garbage=8)
@@ -61,10 +75,7 @@ def jax_walk(batch):
     """The JAX machine on the whole batch at the default budget, once:
     (tape, records, ok) as numpy."""
     buf, cs, _ = batch
-    fn = jax.jit(_jax_walk, static_argnums=(2, 3))
-    tape, rf, ok = fn(jnp.asarray(np.pad(buf, ((0, 0), (0, _PAD)))),
-                      jnp.asarray(cs), N_OUT, jz.default_events(N_OUT))
-    return np.asarray(tape), tuple(np.asarray(f) for f in rf), np.asarray(ok)
+    return _run_jax_walk(buf, cs)
 
 
 @pytest.fixture(scope="module")
@@ -303,6 +314,98 @@ def test_records_are_compacted_and_err_rows_empty(batch, port_walk):
     assert ok.sum() >= len(VALID) and (~ok).sum() >= len(streams.ZSTD_BAD)
 
 
+def _assert_split_equals(split, plain, jax_walk=None, rows=None):
+    """K7's split against the plain walk on every column of every row,
+    and, where given, against the JAX machine on the rows (indices into
+    its batch) it accepts: tape[:tlen] and the records in order."""
+    for x, y in zip(_np(split[:4])[:2] + _np(split[:4])[2] + (_np(split[:4])[3],),
+                    _np(plain)[:2] + _np(plain)[2] + (_np(plain)[3],)):
+        assert np.array_equal(x, y)
+    if jax_walk is None:
+        return
+    jtape, jrf, jok = jax_walk
+    tape, tlen, rf, ok = _np(split[:4])
+    for i, j in enumerate(rows):
+        if not jok[j]:
+            continue
+        assert ok[i]
+        assert np.array_equal(jtape[j, :tlen[i]], tape[i, :tlen[i]])
+        nrec = int((jrf[0][j] >= 0).sum())
+        assert nrec == int((rf[0][i] >= 0).sum())
+        for w, g in zip(jrf, rf):
+            assert np.array_equal(w[j, :nrec], g[i, :nrec])
+
+
+@pytest.mark.parametrize("budget", ["default", "high"])
+def test_split_matches_plain_and_jax(budget, batch, jax_walk, port_walk):
+    """K7's split — the decoder's (ofv, ll, ml) stream with its stop, then
+    the flush's repeat offsets, checks and records (_fsm_walk_split) —
+    equals the plain walk on every column of every generated row (valid,
+    dense, corrupt, flipped, garbage) at the default and the escalated
+    budget, and JAX's machine on every row JAX accepts at the default
+    budget; its sequence counts are those of the records."""
+    buf, cs, kinds = batch
+    b, c = torch.from_numpy(buf), torch.from_numpy(cs)
+    maxev = (tz.default_events(N_OUT) if budget == "default"
+             else tz.high_events(N_OUT))
+    E = tz.event_slots(maxev)
+    split = tz._fsm_walk_split(b, c, N_OUT, E)
+    if budget == "default":
+        _assert_split_equals(split, port_walk, jax_walk, range(len(kinds)))
+    else:
+        _assert_split_equals(split, tz._fsm_walk_plain(b, c, N_OUT, E))
+    ok, nseq, rf = split[3].numpy(), split[4].numpy(), split[2]
+    assert ok.sum() >= len(VALID)
+    # every sequence emits one match record (matches are 3 bytes or more)
+    for i in np.nonzero(ok)[0]:
+        assert nseq[i] <= int((rf[0][i] == 1).sum())
+    assert nseq[ok].max() >= 256        # more than one flush of the kernel
+
+
+@pytest.fixture(scope="module")
+def ring_batch():
+    return streams.zstd_ring_rows(54, N_OUT, WIDTH)
+
+
+def test_ring_rows_reach_the_kernels_branches(ring_batch):
+    """The split's extra rows: a sequence bitstream longer than the
+    kernel's ring, and one frame of many blocks with repeated sequence
+    tables and treeless literals."""
+    buf, cs, kinds = ring_batch
+    assert kinds[:2] == streams.ZSTD_RING_KINDS
+    f = [streams.zstd_features(bytes(buf[i, :cs[i]])) for i in range(2)]
+    assert "seq_stream_2k" in f[0]
+    assert f[1] >= {"multi_block", "seq_repeat", "treeless", "huf_4s"}
+
+
+@pytest.mark.parametrize("budget", ["default", "high"])
+def test_split_matches_plain_and_jax_on_ring_rows(budget, batch, ring_batch):
+    """K7's split on the ring rows and their flips: equal to the plain
+    walk on every column; the valid rows replay to libzstd's bytes; at the
+    default budget equal to JAX's machine where it accepts (the rows packed
+    into the batch's shape, so its compile is shared)."""
+    rbuf, rcs, rkinds = ring_batch
+    b, c = torch.from_numpy(rbuf), torch.from_numpy(rcs)
+    maxev = (tz.default_events(N_OUT) if budget == "default"
+             else tz.high_events(N_OUT))
+    E = tz.event_slots(maxev)
+    split = tz._fsm_walk_split(b, c, N_OUT, E)
+    plain = tz._fsm_walk_plain(b, c, N_OUT, E)
+    jw = None
+    if budget == "default":
+        jb, jc = batch[0].copy(), batch[1].copy()
+        jb[:len(rkinds)], jc[:len(rkinds)] = rbuf, rcs
+        jw = _run_jax_walk(jb, jc)
+    _assert_split_equals(split, plain, jw, range(len(rkinds)))
+    walk = _np(split[:4])
+    for i, kind in enumerate(rkinds):
+        if kind != "flip":
+            assert walk[3][i]
+            assert replay(walk, rbuf, i) == thost.decompress(
+                bytes(rbuf[i, :rcs[i]]), N_OUT)
+    assert split[4][0] > 256
+
+
 def test_decode_matches_jax(batch, jax_decode):
     """decode at the escalated budget against JAX decode (its CPU leg,
     the Pallas expand in interpret mode): every row JAX decodes, flips
@@ -402,24 +505,37 @@ def test_blocks_above_decode_cap_take_the_host_engine():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_generated_frames(cuda):
-    """K7 against its plain version on the generated rows of the card
-    cases up to 32 KB at the default budget (tape, tlen, records, ok,
-    tolerance 0; the plain loop takes a literal a step, too slow for the
-    128 KB rows), and K7 + K1 against libzstd on every valid row of every
-    card case."""
+    """K7 against its plain version on the generated rows and the ring
+    rows (a sequence bitstream longer than the kernel's ring, a frame of
+    many blocks with repeated tables and treeless literals, their flips)
+    of the card cases up to 32 KB at the default budget (tape, tlen,
+    records, ok, tolerance 0; the plain loop takes a literal a step, too
+    slow for the 128 KB rows), its stats (sequences a row) against the
+    split's on the 8 KB rows it accepts, and K7 + K1 against libzstd on
+    every valid row of every card case."""
     for seed, n, width in streams.ZSTD_CARD_CASES:
         buf, cs, kinds = streams.zstd_rows(seed, n, width, garbage=8)
+        rbuf, rcs, rkinds = streams.zstd_ring_rows(seed + 10, n, width)
+        buf, cs = np.concatenate([buf, rbuf]), np.concatenate([cs, rcs])
+        kinds = kinds + rkinds
         b, c = torch.from_numpy(buf), torch.from_numpy(cs)
         if n <= 32768:
+            seqs = torch.empty(b.shape[0], dtype=torch.int32, device=cuda)
             k = _np(tz.fsm_walk(b.to(cuda), c.to(cuda), n,
-                                tz.default_events(n)))
+                                tz.default_events(n), seqs))
             p = _np(tz.fsm_walk(b, c, n, tz.default_events(n)))
             for u, v in zip((*k[:2], *k[2], k[3]), (*p[:2], *p[2], p[3])):
                 assert np.array_equal(u, v)
+            if n == N_OUT:
+                split = tz._fsm_walk_split(b, c, n, tz.event_slots(
+                    tz.default_events(n)))
+                ok = k[3]
+                assert np.array_equal(seqs.cpu().numpy()[ok],
+                                      split[4].numpy()[ok])
         out, _, err = tz.decode(b.to(cuda), c.to(cuda), n)
         out, err = out.cpu().numpy(), err.cpu().numpy()
         for i, kind in enumerate(kinds):
-            if kind in VALID:
+            if kind in VALID or kind in streams.ZSTD_RING_KINDS:
                 assert not err[i]
                 assert out[i].tobytes() == thost.decompress(
                     bytes(buf[i, :cs[i]]), n)
