@@ -239,6 +239,18 @@ def max_records(out_len: int) -> int:
     return out_len // 16 + out_len // 64 + 32
 
 
+# stream positions one CTA of K4 resolves (kB in csrc/lz4_walk.cu)
+K4_BLOCK = 4160
+# K4 saturates its op sums at 2^21 - 1, so out_len stays below it; its
+# records hold stream positions and lengths in 32 bits, so rows stay
+# narrower than 2^23 bytes (255 * W fits)
+_K4_MAX_OUT = (1 << 21) - 2
+_K4_MAX_W = (1 << 23) - 1
+_EPOCHS = 1 << 13
+# K4's look-back scratch, per (device, stream): [buffer, last epoch]
+_lookback: dict = {}
+
+
 def walk(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
          maxrec: int):
     """Parse a batch of LZ4 blocks into compacted records: (kind 0,
@@ -248,7 +260,33 @@ def walk(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
     E = structured.record_slots(maxrec)
     if not slots.is_cuda:
         return _walk_plain(slots, csizes, out_len, E)
-    return structured.launch_walk("lz4_walk", slots, csizes, out_len, E)
+    if out_len > _K4_MAX_OUT or slots.shape[1] > _K4_MAX_W:
+        raise ValueError(f"K4 takes out_len <= {_K4_MAX_OUT} and rows of "
+                         f"at most {_K4_MAX_W} bytes")
+    return structured.launch_walk("lz4_walk", slots, csizes, out_len, E,
+                                  _lookback_args(slots))
+
+
+def _lookback_args(slots: torch.Tensor) -> tuple:
+    """K4's look-back scratch for one launch: (pointer, bytes, epoch).
+    A row wider than K4_BLOCK passes each block's entry on through 16
+    bytes a block that carry the launch's epoch, so the buffer, kept per
+    device and stream (launches on one stream run in order), is zeroed
+    only when it grows or the epochs (1 .. 8191) wrap. The epoch is set
+    here, on the host, so a launch captured in a CUDA graph would find
+    its previous replay's entries: K4 is not graph-safe as it stands."""
+    N, W = slots.shape
+    nblk = -(-W // K4_BLOCK)
+    if nblk <= 1:
+        return (None, 0, 0)
+    need = 16 * N * nblk
+    key = (slots.device, torch.cuda.current_stream(slots.device).cuda_stream)
+    ent = _lookback.get(key)
+    if ent is None or ent[0].numel() < need or ent[1] + 1 >= _EPOCHS:
+        ent = _lookback[key] = [torch.zeros(need, dtype=U8,
+                                            device=slots.device), 0]
+    ent[1] += 1
+    return (ent[0].data_ptr(), ent[0].numel(), ent[1])
 
 
 def _walk_plain(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
@@ -344,6 +382,252 @@ def _walk_plain(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
         fin[r] = g & lit_fin
     ok = ~err & (op == out_len)
     return (kind, arg, dst, ln), dist.to(I32), uni, ok
+
+
+# ---------------------------------------------------------------------------
+# K4's split in plain PyTorch (tests only): the sequence every position
+# would start, the in-block exit tables, the entries across blocks, the
+# emission of the records; chained, they compute _walk_plain's function
+# ---------------------------------------------------------------------------
+
+_CONT, _LIT_ERR, _FIN, _MATCH_ERR = 0, 1, 2, 3     # kinds of a sequence
+_GO, _ERR, _DONE = 0, 1, 2                         # outcomes of a step
+
+
+def _seq_table(slots: torch.Tensor, csizes: torch.Tensor) -> dict:
+    """Pass 1's successor table: the sequence a token at each position p
+    would start, from p alone (csrc/lz4_walk.cu, eval). Int64 (N, W)
+    tensors kind (_CONT, _LIT_ERR, _FIN or _MATCH_ERR: whether the
+    sequence goes on, or its position-only error or end), litlen, ipl,
+    offv, mlen (0 unless _CONT or _MATCH_ERR) and nxt (the next token;
+    ip2 for _LIT_ERR and _FIN). The 255-run at every position is one
+    reverse cumulative minimum, not a loop per position."""
+    N, W = slots.shape
+    dev = slots.device
+    cs = csizes.to(I64)[:, None]
+    lim = torch.clamp(cs, 0, W)
+    p = torch.arange(W, device=dev)[None, :].expand(N, W)
+    b = torch.where(p < lim, slots.to(I64), 0)
+    nz = _rfill_min(torch.where(b != 255, p, W))    # first non-255 at or after
+
+    def at(t, x):
+        return torch.where(x < lim, t.gather(1, torch.clamp(x, 0, W - 1)), 0)
+
+    def run(x):
+        return torch.where(x < lim, at(nz, x) - x, 0)
+
+    tok = b
+    L, ML = tok >> 4, tok & 15
+    R = torch.where(L == 15, run(p + 1), 0)
+    litlen = torch.where(L == 15, 15 + 255 * R + at(b, p + 1 + R), L)
+    ipl = torch.where(L == 15, p + 2 + R, p + 1)
+    m = R >> 3
+    xerr = (m >= 1) & (torch.where(m == 1, p + 8, p + 8 * m + 1) >= cs)
+    ip2 = ipl + litlen
+    lit_err = xerr | (ip2 > cs)
+    fin = ~lit_err & (ip2 >= cs)
+    offv = at(b, ip2) | (at(b, ip2 + 1) << 8)
+    R2 = torch.where(ML == 15, run(ip2 + 2), 0)
+    mlen = torch.where(ML == 15, 19 + 255 * R2 + at(b, ip2 + 2 + R2), 4 + ML)
+    ip3 = torch.where(ML == 15, ip2 + 3 + R2, ip2 + 2)
+    m2 = R2 >> 3
+    merr = (m2 >= 1) & (torch.where(m2 == 1, ip2 + 8, ip2 + 8 * m2 + 2) >= cs)
+    stop = lit_err | fin
+    kind = torch.where(lit_err, _LIT_ERR, torch.where(fin, _FIN, torch.where(
+        merr | (offv == 0) | (ip3 > cs), _MATCH_ERR, _CONT)))
+    return dict(kind=kind, litlen=litlen, ipl=ipl,
+                offv=torch.where(stop, 0, offv),
+                mlen=torch.where(stop, 0, mlen),
+                nxt=torch.where(stop, ip2, ip3))
+
+
+def _seq_at(tab: dict, rows: torch.Tensor, x: torch.Tensor,
+            cs: torch.Tensor) -> dict:
+    """The table's sequence at positions x of the given rows; a position
+    at or past min(csize, W) reads a zero token: no record, _FIN when
+    x + 1 == csize, an error otherwise."""
+    W = tab["kind"].shape[1]
+    c = cs[rows]
+    inside = x < torch.clamp(c, 0, W)
+    xc = torch.clamp(x, 0, W - 1)
+    out = {k: torch.where(inside, t[rows, xc], 0) for k, t in tab.items()}
+    vkind = torch.where(x + 1 > c, _LIT_ERR,
+                        torch.where(x + 1 == c, _FIN, _MATCH_ERR))
+    out["kind"] = torch.where(inside, out["kind"], vkind)
+    out["ipl"] = torch.where(inside, out["ipl"], x + 1)
+    out["nxt"] = torch.where(inside, out["nxt"], x + 1)
+    return out
+
+
+def _exit_tables(tab: dict, csizes: torch.Tensor, B: int) -> dict:
+    """Pass 1's in-block exit tables for blocks of B positions, by pointer
+    jumping: for every position, P (the node where its chain leaves its
+    block, at a node whose next token lies at or past min(block end,
+    csize, W), or ends, at a node whose sequence errs or ends by itself),
+    and over the nodes before P: nrec (records), opsum (output bytes),
+    moff (the largest offset minus the output before its match, relative
+    to the output before the position) and uni (every offset equals the
+    position's own). Int64 / bool (N, W)."""
+    kind, nxt = tab["kind"], tab["nxt"]
+    N, W = kind.shape
+    dev = kind.device
+    lim = torch.clamp(csizes.to(I64), 0, W)[:, None]
+    idx = torch.arange(W, device=dev)[None, :].expand(N, W)
+    bend = torch.minimum((idx // B + 1) * B, lim)
+    final = (kind != _CONT) | (nxt >= bend) | (idx >= lim)
+    P = torch.where(final, idx, nxt)
+    litlen, offv = tab["litlen"], tab["offv"]
+    nrec = torch.where(final, 0, (litlen > 0).to(I64) + 1)
+    opsum = torch.where(final, 0, litlen + tab["mlen"])
+    moff = torch.where(final, 0, torch.clamp(offv - litlen, min=0))
+    uni = torch.ones((N, W), dtype=torch.bool, device=dev)
+    while True:
+        PP = P.gather(1, P)
+        act = (P != idx) & (PP != P)
+        if not bool(act.any()):
+            break
+        nrec, opsum, moff, uni = (
+            torch.where(act, nrec + nrec.gather(1, P), nrec),
+            torch.where(act, opsum + opsum.gather(1, P), opsum),
+            torch.where(act, torch.maximum(moff, moff.gather(1, P) - opsum),
+                        moff),
+            torch.where(act, uni & uni.gather(1, P)
+                        & (offv.gather(1, P) == offv), uni))
+        P = torch.where(act, PP, P)
+    return dict(P=P, nrec=nrec, opsum=opsum, moff=moff, uni=uni)
+
+
+def _block_entries(tab: dict, ex: dict, csizes: torch.Tensor, out_len: int,
+                   E: int, B: int):
+    """Pass 2: each row's chain from block to block through the exit
+    tables, one table read a block. Returns (ent, entered, term): ent a
+    dict of int64 (N, nblk) tensors e, cnt, op, dist and bool uni (the
+    entry position of each entered block, the records, output, first
+    match offset and uni before it), entered (N, nblk) bool, term (N,)
+    the block where the row ends (-1 for a row of csize <= 0)."""
+    N, W = tab["kind"].shape
+    dev = tab["kind"].device
+    cs = csizes.to(I64)
+    lim = torch.clamp(cs, 0, W)
+    nblk = max(1, -(-W // B))
+    z = torch.zeros((N, nblk), dtype=I64, device=dev)
+    ent = dict(e=z.clone(), cnt=z.clone(), op=z.clone(), dist=z.clone(),
+               uni=torch.ones((N, nblk), dtype=torch.bool, device=dev))
+    entered = torch.zeros((N, nblk), dtype=torch.bool, device=dev)
+    term = torch.full((N,), -1, dtype=I64, device=dev)
+    zr = torch.zeros(N, dtype=I64, device=dev)
+    e, cnt, op, dist = zr.clone(), zr.clone(), zr.clone(), zr.clone()
+    uni = torch.ones(N, dtype=torch.bool, device=dev)
+    alive = cs > 0
+    while bool(alive.any()):
+        r = torch.nonzero(alive).flatten()
+        er, c0, o0, d0, u0 = e[r], cnt[r], op[r], dist[r], uni[r]
+        j = er // B
+        for k, v in (("e", er), ("cnt", c0), ("op", o0), ("dist", d0),
+                     ("uni", u0)):
+            ent[k][r, j] = v
+        entered[r, j] = True
+        node = er < torch.minimum((j + 1) * B, lim[r])
+        ec = torch.clamp(er, 0, W - 1)
+        a = {k: torch.where(node, t[r, ec], 0) for k, t in ex.items()
+             if k != "uni"}
+        au = torch.where(node, ex["uni"][r, ec], True)
+        f = torch.where(node, a["P"], er)
+        q = _seq_at(tab, r, f, cs)
+        opf, cntf = o0 + a["opsum"], c0 + a["nrec"]
+        nl = (q["litlen"] > 0).to(I64)
+        o2 = opf + q["litlen"]
+        x = q["nxt"]
+        ends = ((a["moff"] > o0) | (opf > out_len) | (cntf > E)
+                | (q["kind"] != _CONT) | (o2 > out_len)
+                | ((nl > 0) & (cntf >= E)) | (q["offv"] > o2)
+                | (o2 + q["mlen"] > out_len) | (cntf + nl >= E)
+                | (x >= lim[r]))
+        oe = torch.where(node, tab["offv"][r, ec], 0)
+        term[r[ends]] = j[ends]
+        alive[r[ends]] = False
+        g = ~ends
+        rg = r[g]
+        e[rg] = x[g]
+        cnt[rg] = (cntf + nl + 1)[g]
+        op[rg] = (o2 + q["mlen"])[g]
+        dist[rg] = torch.where(d0 != 0, d0, oe)[g]
+        uni[rg] = (u0 & au & ((f == er) | (q["offv"] == oe))
+                   & ((d0 == 0) | (oe == d0)))[g]
+    return ent, entered, term
+
+
+def _emit_records(tab: dict, ent: dict, entered: torch.Tensor,
+                  term: torch.Tensor, csizes: torch.Tensor, out_len: int,
+                  E: int, B: int):
+    """Pass 3: every entered block walks its chain from its entry, one
+    sequence a step, with the op checks and the budget, and writes its
+    records; the block where the row ends gives the records' end, dist,
+    uni and ok. Returns _walk_plain's outputs."""
+    N, W = tab["kind"].shape
+    dev = tab["kind"].device
+    cs = csizes.to(I64)
+    lim = torch.clamp(cs, 0, W)
+    kind, arg, dst, ln = structured.empty_records(N, E, dev)
+    rows, blks = torch.nonzero(entered, as_tuple=True)
+    p, c, o, d = (ent[k][rows, blks].clone() for k in ("e", "cnt", "op",
+                                                         "dist"))
+    u = ent["uni"][rows, blks].clone()
+    bend = torch.minimum((blks + 1) * B, lim[rows])
+    res = torch.zeros_like(p)
+    live = torch.ones_like(u)
+    while bool(live.any()):
+        i = torch.nonzero(live).flatten()
+        ri, pi, ci, oi = rows[i], p[i], c[i], o[i]
+        q = _seq_at(tab, ri, pi, cs)
+        k, L = q["kind"], q["litlen"]
+        err1 = (k == _LIT_ERR) | (oi + L > out_len) | ((L > 0) & (ci >= E))
+        wl = ~err1 & (L > 0)
+        kind[ri[wl], ci[wl]] = 0
+        arg[ri[wl], ci[wl]] = q["ipl"][wl].to(I32)
+        dst[ri[wl], ci[wl]] = oi[wl].to(I32)
+        ln[ri[wl], ci[wl]] = L[wl].to(I32)
+        c2, o2 = ci + wl.to(I64), oi + torch.where(err1, 0, L)
+        done = ~err1 & (k == _FIN)
+        err2 = ~err1 & ~done & ((k == _MATCH_ERR) | (q["offv"] > o2)
+                                | (o2 + q["mlen"] > out_len) | (c2 >= E))
+        wm = ~err1 & ~done & ~err2
+        kind[ri[wm], c2[wm]] = 1
+        arg[ri[wm], c2[wm]] = q["offv"][wm].to(I32)
+        dst[ri[wm], c2[wm]] = o2[wm].to(I32)
+        ln[ri[wm], c2[wm]] = q["mlen"][wm].to(I32)
+        di = torch.where(wm & (d[i] == 0), q["offv"], d[i])
+        u[i] = u[i] & ~(wm & (q["offv"] != di))
+        d[i] = di
+        c[i] = c2 + wm.to(I64)
+        o[i] = o2 + torch.where(wm, q["mlen"], 0)
+        pn = torch.where(wm, q["nxt"], pi)
+        p[i] = pn
+        r = torch.where(err1 | err2, _ERR, torch.where(done, _DONE, _GO))
+        res[i] = r
+        # a block's walk stops at an error or the end, or where its chain
+        # leaves the block for a position of the row; a position past the
+        # row's bytes is one more (zero) token
+        live[i] = (r == _GO) & ~((pn >= bend[i]) & (pn < lim[ri]))
+    last = blks == term[rows]
+    dist = torch.zeros(N, dtype=I32, device=dev)
+    uni = torch.ones(N, dtype=torch.bool, device=dev)
+    ok = torch.zeros(N, dtype=torch.bool, device=dev)
+    rl = rows[last]
+    dist[rl] = d[last].to(I32)
+    uni[rl] = u[last]
+    ok[rl] = (res[last] == _DONE) & (o[last] == out_len)
+    return (kind, arg, dst, ln), dist, uni, ok
+
+
+def _walk_split(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
+                E: int, B: int = K4_BLOCK):
+    """K4's three passes chained in plain PyTorch, blocks of B positions:
+    _walk_plain's outputs."""
+    tab = _seq_table(slots, csizes)
+    ex = _exit_tables(tab, csizes, B)
+    ent, entered, term = _block_entries(tab, ex, csizes, out_len, E, B)
+    return _emit_records(tab, ent, entered, term, csizes, out_len, E, B)
 
 
 def decode(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,

@@ -40,7 +40,9 @@ LAUNCHES = {name: 0 for name in SOURCES}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures (argtypes) of each entry point; restype is int
-# the three walks share one signature (structured.launch_walk)
+# the three walks share one signature (structured.launch_walk); the LZ4
+# walk adds its look-back scratch, the scratch's bytes and the launch's
+# epoch before the stream
 _WALK = [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]
 _SIGS = {
     # slots, N, W, kind, arg, dst, len, R, out, out_len, stats, stream
@@ -48,7 +50,8 @@ _SIGS = {
                                  _P]),
     "walk": ("walk_launch", _WALK),
     "decode_one": ("decode_launch", [_P, _I, _I, _P, _I, _P, _P, _P, _P]),
-    "lz4_walk": ("lz4_walk_launch", _WALK),
+    "lz4_walk": ("lz4_walk_launch",
+                 _WALK[:-1] + [_P, ctypes.c_longlong, ctypes.c_uint, _P]),
     "snappy_walk": ("snappy_walk_launch", _WALK),
     # the zlib walk also writes the literal tape and its length
     "zlib_walk": ("zlib_walk_launch", _WALK[:6] + [_P, _P] + _WALK[6:]),

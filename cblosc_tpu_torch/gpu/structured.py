@@ -80,9 +80,10 @@ def walk(slots: torch.Tensor, csizes: torch.Tensor, out_len: int,
 
 
 def launch_walk(name: str, slots: torch.Tensor, csizes: torch.Tensor,
-                out_len: int, E: int):
+                out_len: int, E: int, extra: tuple = ()):
     """Launch the walk kernel `name` (walk, lz4_walk, snappy_walk: one C
-    signature) on CUDA tensors; returns walk()'s outputs with E record
+    signature, the kernel's own arguments `extra` added before the
+    stream) on CUDA tensors; returns walk()'s outputs with E record
     columns."""
     kernels.require(slots, "slots", U8, 2)
     kernels.require(csizes, "csizes", I32, 1)
@@ -97,7 +98,7 @@ def launch_walk(name: str, slots: torch.Tensor, csizes: torch.Tensor,
     code = kernels.fn(name)(
         slots.data_ptr(), N, W, csizes.data_ptr(), out_len, E,
         kind.data_ptr(), arg.data_ptr(), dst.data_ptr(), ln.data_ptr(),
-        dist.data_ptr(), uni.data_ptr(), ok.data_ptr(),
+        dist.data_ptr(), uni.data_ptr(), ok.data_ptr(), *extra,
         kernels.stream_ptr(slots))
     kernels.check(name, code)
     return (kind, arg, dst, ln), dist, uni, ok

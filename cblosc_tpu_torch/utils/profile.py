@@ -12,7 +12,9 @@ one steady call each of ``gpu.pipeline.compress_blocks`` and
 ``decompress_blocks``; then one steady byte-API ``decompress_ctx`` each
 of the chunks the host engine writes: a clevel-9 blosclz chunk (256 KB
 of low-entropy bytes, the token-dense split the generic decoder takes),
-a snappy chunk of 4 MB synth (the snappy walk runs twice, the default
+an LZ4 clevel-5 chunk of 4 MB synth (numcodecs' default codec: 128 KB
+splits, four of them dense, so the LZ4 walk runs twice, the default
+budget then the escalated one), a snappy chunk of 4 MB synth (the snappy walk runs twice, the default
 budget then the escalated one, as the byte API retries), a clevel-5
 zlib chunk of 4 MB synth (128 KB splits; the zlib walk
 runs twice, the default budget then the escalated one, as the byte API
@@ -148,6 +150,11 @@ def main() -> None:
                  "decompress_ctx host-engine clevel-9 256 KB", card)
     print(json.dumps(r))
     z = sy[:4 << 20].tobytes()
+    ctx = engine.build_context(5, C.SHUFFLE, 8, len(z), len(z) + 16, C.LZ4)
+    chunk = engine.compress_chunk(ctx, z)
+    r = _profile(lambda: api.decompress_ctx(chunk, device=dev),
+                 "decompress_ctx host-engine LZ4 clevel-5 synth 4 MB", card)
+    print(json.dumps(r))
     ctx = engine.build_context(1, C.SHUFFLE, 8, len(z), len(z) + 16, C.SNAPPY)
     chunk = engine.compress_chunk(ctx, z)
     r = _profile(lambda: api.decompress_ctx(chunk, device=dev),

@@ -396,6 +396,65 @@ def lz4_rows(seed: int, out_len: int, width: int, garbage: int = 8):
     return buf, cs, len(valid), len(bad)
 
 
+# Rows for K4's block split (lz4_edge_rows), at out_len 8192: with blocks
+# of a few dozen positions every sequence straddles a block edge
+#   straddle    valid rows of every kind
+#   long_runs   a literal whose 255-run (31 bytes) spans blocks; runs of 600
+#               and 700 bytes at a token and in a match (past out_len: err)
+#   near_end    a literal's 255-run cut 3, 9 and 17 bytes before csize
+#   all_255     rows of 255 bytes only, one of them as wide as the row
+#   late_error  clean blocks, then an offset beyond the output, offset 0,
+#               a match past out_len, a stream ending on a match
+#   dense       token-dense rows (lz4_dense): budgets in later blocks
+#   one_block   a valid row whose stream fits a block of 64 positions
+LZ4_EDGE_GROUPS = ("straddle", "long_runs", "near_end", "all_255",
+                   "late_error", "dense", "one_block")
+
+
+def lz4_edge_rows(seed: int, out_len: int = 8192, width: int = 8256):
+    """(buf uint8 (N, width), csizes int32 (N,), groups): the rows of
+    LZ4_EDGE_GROUPS, groups[name] their row indices."""
+    rng = np.random.default_rng(seed)
+    groups = {g: [] for g in LZ4_EDGE_GROUPS}
+    rows = []
+
+    def add(group, stream, csize=None):
+        groups[group].append(len(rows))
+        rows.append((stream[:width], len(stream) if csize is None else csize))
+
+    for k in LZ4_KINDS:
+        add("straddle", lz4_build(rng, out_len, k)[0])
+    w = _LZ4Writer(rng)
+    w.seq(w.random(15 + 255 * 31 + 7), 8, 3)
+    w.seq(w.random(out_len - len(w.out)))
+    add("long_runs", bytes(w.stream))
+    pre = bytes(_lz4_prefix(rng, 1500).stream)
+    add("long_runs", pre + b"\xf0" + b"\xff" * 600 + b"\x05" + bytes(64))
+    add("long_runs", pre + b"\x1f" + b"a\x01\x00" + b"\xff" * 700 + b"\x03"
+        + bytes(40))
+    cut = pre + b"\xf0" + b"\xff" * 40
+    for back in (3, 9, 17):
+        add("near_end", cut, len(cut) - back)
+    add("all_255", b"\xff" * 3000)
+    add("all_255", b"\xff" * width)
+    w = _lz4_prefix(rng, out_len * 3 // 4)
+    tail = lz4_sequence(bytes(8))
+    add("late_error", bytes(w.stream)
+        + lz4_sequence(b"abc", 8, len(w.out) + 50) + tail)
+    add("late_error", bytes(w.stream) + lz4_sequence(b"abc", 8, 0) + tail)
+    w = _lz4_prefix(rng, out_len - 200)
+    add("late_error", bytes(w.stream) + lz4_sequence(b"ab", 400, 3) + tail)
+    add("late_error", bytes(_lz4_prefix(rng, out_len * 7 // 8).stream))
+    for _ in range(2):
+        add("dense", lz4_dense(rng, out_len)[0])
+    w = _LZ4Writer(rng)                    # about 60 stream bytes
+    w.seq(w.random(16), out_len - 24, 16)
+    w.seq(w.random(8))
+    add("one_block", bytes(w.stream))
+    buf, cs = _pack(rows, width)
+    return buf, cs, groups
+
+
 # ---------------------------------------------------------------------------
 # Raw snappy (the public format; blosc/blosc.c:443-467 wrap the library)
 # ---------------------------------------------------------------------------

@@ -26,7 +26,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      and the snappy walk (snappy_walk) are held on their main-path rows
      (a 4 MB LZ4 chunk from the device encoder; the rows of a 4 MB
      snappy chunk from the host engine) and timed there, the LZ4 walk
-     also on one generated 128 KB row ("long_*"); they are held besides
+     also on one generated 128 KB row ("long_*") and on numcodecs'
+     default chunk (the host engine's LZ4 clevel-5 chunk of 4 MB synth:
+     24 live rows of 128 KB, 4 of them dense) at the default and the
+     escalated budget and on 32 copies of its rows in one launch
+     ("chunk5_*", "chunk5x32_*", with the densest row's records and the
+     ns a record), held there on two dense and the short rows and the
+     32 copies against the 24 rows; they are held besides
      on host-engine rows (LZ4 at clevel 5 and 9, LZ4HC), generated
      streams with corruptions, and a token-dense row at the default and
      the escalated budget; the snappy walk is timed at the escalated
@@ -392,11 +398,11 @@ def _walk_entry(dev, walk_fn, plain_fn, kernel, rows, cs, n, maxrec, reps):
         rows=N, records=nrec, accepted=int(k[3].sum()))
 
 
-def phase_codec_walks(dev, chunk_bytes, snappy_chunk, reps):
+def phase_codec_walks(dev, chunk_bytes, snappy_chunk, lz4_chunk, reps):
     """K4 (LZ4 walk) and K5 (snappy walk) against their plain versions on
     host copies of the same CUDA tensors (_host_plain), at the default
     and the escalated budget; times on the main-path rows and, for K4,
-    one generated 128 KB row."""
+    one generated 128 KB row and numcodecs' default chunk (lz4_chunk)."""
     from cblosc_tpu_torch.format import constants as C
     from cblosc_tpu_torch.gpu import codec_lz4, codec_snappy, structured
     from cblosc_tpu_torch.utils import streams
@@ -472,6 +478,10 @@ def phase_codec_walks(dev, chunk_bytes, snappy_chunk, reps):
                                            "device_ms_source", "plain_ms",
                                            "bound_ms", "rows", "records",
                                            "accepted")})
+    r.update(_lz4_chunk5(dev, lz4_chunk, reps))
+    r["max_abs_err"] = max(r["max_abs_err"], r.pop("chunk5_max_abs_err"))
+    check(r["max_abs_err"] == 0, "lz4_walk kernel differs from its plain "
+          f"version ({r['max_abs_err']})")
     # ---- K5: the main-path rows (also at the escalated budget, the rows
     #      that overflow the default one), generated streams, a
     #      token-dense row ----------------------------------------------
@@ -526,12 +536,102 @@ def phase_codec_walks(dev, chunk_bytes, snappy_chunk, reps):
           f"on the card ({_device_label(r['high_device_ms_source'])}), "
           f"{r['ns_per_record']:.1f} ns a record on the densest row")
     r = out["lz4_walk"]
+    print(f"kernel lz4_walk on numcodecs' default chunk (host-engine LZ4 "
+          f"clevel 5, 4 MB synth: {r['chunk5_rows']} live rows of "
+          f"{r['chunk5_out_len'] >> 10} KB, {r['chunk5_dense_rows']} dense): "
+          + "; ".join(
+              f"{b} budget ({r[f'chunk5_{b}_budget']} slots) "
+              f"{r[f'chunk5_{b}_device_ms']:.4f} ms on the card "
+              f"({_device_label(r[f'chunk5_{b}_device_ms_source'])}), "
+              f"{r[f'chunk5_{b}_ms']:.4f} ms per call alone, "
+              f"{r[f'chunk5_{b}_records']} records, "
+              f"{r[f'chunk5_{b}_accepted']} rows accepted, bound "
+              f"{r[f'chunk5_{b}_bound_ms']:.6f} ms, all slots' 16 B "
+              f"{r[f'chunk5_{b}_slots_ms']:.6f} ms; 32 copies in one launch "
+              f"{r[f'chunk5x32_{b}_device_ms']:.4f} ms (bound "
+              f"{r[f'chunk5x32_{b}_bound_ms']:.6f}, slots "
+              f"{r[f'chunk5x32_{b}_slots_ms']:.6f})"
+              for b in ("default", "escalated"))
+          + f"; the densest row {r['densest_records']} records, "
+          f"{r['ns_per_record']:.1f} ns a record at the escalated budget; "
+          f"held to the plain version (on the host) on 2 dense and "
+          f"{r['chunk5_short_rows']} short rows at both budgets "
+          f"({r['chunk5_plain_s']:.1f} s), the 32 copies to the 24 rows")
     print(f"kernel lz4_walk on {r['long_rows']} generated {ln >> 10} KB "
           f"row ({r['long_records']} records, {r['long_accepted']} accepted): "
           f"{r['long_ms']:.4f} ms per call alone; {r['long_device_ms']:.4f} "
           f"ms on the card ({_device_label(r['long_device_ms_source'])}); "
           f"plain {r['long_plain_ms']:.4f} ms (on the host); bound "
           f"{r['long_bound_ms']:.6f} ms")
+    return out
+
+
+def _lz4_chunk5(dev, lz4_chunk, reps) -> dict:
+    """K4 on numcodecs' default chunk (the host engine's LZ4 clevel-5
+    chunk of 4 MB synth, whose dense rows overflow the default budget, so
+    the byte API runs it twice): its live rows and 32 copies of them in
+    one launch (the 128 MB working set; only the chunk's rows repeat) at
+    the default and the escalated budget, timed; held to the plain version
+    on two dense rows and every short row (the plain loop takes one step a
+    sequence), and the copies to the rows. Bound as _walk_entry's; every
+    record slot's 16 B, which the bound leaves out, beside it."""
+    from cblosc_tpu_torch.gpu import codec_lz4, structured
+
+    rows, cs, n = chunk_rows(dev, lz4_chunk)
+    rows, cs = live_rows(rows, cs, n)
+    N = rows.shape[0]
+    dense = torch.nonzero(cs > n // 2).flatten()
+    short = torch.nonzero(cs <= n // 2).flatten()
+    rows32, cs32 = rows.repeat(32, 1), cs.repeat(32)
+    out = dict(chunk5_rows=N, chunk5_out_len=n,
+               chunk5_dense_rows=int(dense.numel()),
+               chunk5_short_rows=int(short.numel()))
+    err, plain_s = 0, 0.0
+    for label, mr in (("default", codec_lz4.max_records(n)),
+                      ("escalated", structured.high_records(n))):
+        E = structured.record_slots(mr)
+        k = codec_lz4.walk(rows, cs, n, mr)
+        flat = k[0] + k[1:]
+        for sel in (dense[:2], short):
+            t0 = time.perf_counter()
+            p, _ = _host_plain(codec_lz4._walk_plain, rows[sel], cs[sel], n, E)
+            plain_s += time.perf_counter() - t0
+            err = max(err, _maxdiff(tuple(t[sel] for t in flat), p[0] + p[1:]))
+        k32 = codec_lz4.walk(rows32, cs32, n, mr)
+        err = max(err, _maxdiff(k32[0] + k32[1:], tuple(
+            t.repeat(32, *([1] * (t.dim() - 1))) for t in flat)))
+        call = lambda: codec_lz4.walk(rows, cs, n, mr)  # noqa: E731
+        call32 = lambda: codec_lz4.walk(rows32, cs32, n, mr)  # noqa: E731
+        d1, s1 = _device_ms(dev, call, "::lz4_walk")
+        d32, s32 = _device_ms(dev, call32, "::lz4_walk")
+        per_row = (k[0][0] >= 0).sum(dim=1)
+        nrec = int(per_row.sum())
+        stream = int(cs.sum()) + 4 * N + 6 * N
+        out.update({
+            f"chunk5_{label}_budget": E,
+            f"chunk5_{label}_ms": _ms(dev, call, reps),
+            f"chunk5_{label}_device_ms": d1,
+            f"chunk5_{label}_device_ms_source": s1,
+            f"chunk5_{label}_records": nrec,
+            f"chunk5_{label}_accepted": int(k[3].sum()),
+            f"chunk5_{label}_bound_ms": (stream + 16 * nrec)
+            / HBM_BYTES_PER_S * 1e3,
+            f"chunk5_{label}_slots_ms": 16 * N * E / HBM_BYTES_PER_S * 1e3,
+            f"chunk5x32_{label}_device_ms": d32,
+            f"chunk5x32_{label}_device_ms_source": s32,
+            f"chunk5x32_{label}_bound_ms": 32 * (stream + 16 * nrec)
+            / HBM_BYTES_PER_S * 1e3,
+            f"chunk5x32_{label}_slots_ms": 32 * 16 * N * E
+            / HBM_BYTES_PER_S * 1e3})
+        if label == "escalated":
+            out["densest_records"] = int(per_row.max())
+            out["ns_per_record"] = d1 * 1e6 / max(int(per_row.max()), 1)
+    check(out["chunk5_escalated_accepted"] == N and dense.numel() > 0
+          and out["chunk5_default_accepted"] < N,
+          "the clevel-5 chunk's dense rows must overflow the default budget "
+          "and walk at the escalated one")
+    out["chunk5_plain_s"] = plain_s
+    out["chunk5_max_abs_err"] = err
     return out
 
 
@@ -1334,7 +1434,8 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
 
     stats = phase_kernels(dev, chunk_bytes, host_chunk, reps)
     stamp("phase 2: expand, walk, decode_one held and timed")
-    stats.update(phase_codec_walks(dev, chunk_bytes, snappy_chunk, reps))
+    stats.update(phase_codec_walks(dev, chunk_bytes, snappy_chunk, lz4_chunk,
+                                   reps))
     stamp("phase 2: lz4_walk, snappy_walk held and timed")
     for part in (phase_zlib_walk(dev, zlib_chunks[(5, "synth")], reps),
                  phase_zstd_walk(dev, zstd_chunks[(1, "synth")],

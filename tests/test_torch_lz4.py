@@ -304,3 +304,233 @@ def test_lz4_kernel_and_byte_api_on_card(rng, cuda):
         assert ch == tb.compress_ctx(1, C.SHUFFLE, 4, data, compressor=comp,
                                      device="cpu")
         assert tb.decompress_ctx(ch, device=cuda) == data
+
+
+# ---------------------------------------------------------------------------
+# K4's block split (gpu/codec_lz4: _seq_table, _exit_tables, _block_entries,
+# _emit) at small block sizes, so that rows span many blocks
+# ---------------------------------------------------------------------------
+
+EDGE_BLOCKS = (16, 64, 512)
+
+
+@pytest.fixture(scope="module")
+def edge_rows():
+    """streams.lz4_edge_rows padded to the shared (N_ROWS, n + 64) compile,
+    with the JAX walk's outputs on them at its default budget."""
+    n = 8192
+    buf, cs, groups = streams.lz4_edge_rows(41, n, n + 64)
+    buf = np.pad(buf, ((0, N_ROWS - len(cs)), (0, 0)))
+    cs = np.pad(cs, (0, N_ROWS - len(cs)))
+    want = jax_walk(buf, cs, n, walk_batch=jl._walk_batch,
+                    maxrec=jl.max_records(n))
+    return buf, cs, groups, n, want
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a[0] + a[1:], b[0] + b[1:]))
+
+
+@pytest.mark.parametrize("B", EDGE_BLOCKS)
+@pytest.mark.parametrize("group", streams.LZ4_EDGE_GROUPS)
+def test_walk_split_matches_plain_on_block_edge_rows(edge_rows, group, B):
+    """The split chained (every column, dist, uni, ok) equals _walk_plain on
+    each group's rows, at the default and the escalated budget and at 96
+    records, where a dense row's 97th record falls in a later block."""
+    buf, cs, groups, n, _ = edge_rows
+    idx = groups[group]
+    b, c = torch.from_numpy(buf[idx]), torch.from_numpy(cs[idx])
+    oks = []
+    for E in (ts.record_slots(tl.max_records(n)),
+              ts.record_slots(ts.high_records(n)), 96):
+        want = tl._walk_plain(b, c, n, E)
+        assert _same(tl._walk_split(b, c, n, E, B), want)
+        oks.append(want[3])
+    if group in ("straddle", "one_block"):
+        assert oks[0].all()
+    if group in ("near_end", "all_255", "late_error"):
+        assert not oks[1].any()
+    if group == "dense":
+        assert oks[1].all() and not oks[0].any()
+    if group == "one_block":
+        assert int(c.max()) <= 64
+
+
+@pytest.mark.parametrize("B", EDGE_BLOCKS)
+def test_walk_split_matches_jax_on_block_edge_rows(edge_rows, B):
+    """The split against JAX's _walk_batch on the same rows: records of
+    every row JAX accepts; the error rows err in both walks, the dense
+    rows overflow the default budget in both."""
+    buf, cs, groups, n, want = edge_rows
+    got = tl._walk_split(torch.from_numpy(buf), torch.from_numpy(cs), n,
+                         ts.record_slots(tl.max_records(n)), B)
+    ok, pok = assert_walk_matches_jax(want, got)
+    assert ok[groups["straddle"] + groups["one_block"]].all()
+    bad = groups["near_end"] + groups["all_255"] + groups["late_error"]
+    assert not ok[bad].any() and not pok[bad].any()
+    assert not ok[groups["dense"]].any() and not pok[groups["dense"]].any()
+
+
+@pytest.mark.parametrize("seed,n,W", streams.LZ4_CASES)
+def test_walk_split_matches_plain_on_generated_streams(seed, n, W):
+    """Generated streams with their error rows, corruptions and random
+    rows: the split equals _walk_plain at blocks of 16 positions and at
+    K4's own, at the default budget and at 32 records."""
+    buf, cs, _, _ = streams.lz4_rows(seed, n, W)
+    b, c = torch.from_numpy(buf), torch.from_numpy(cs)
+    for E in (ts.record_slots(tl.max_records(n)), 32):
+        want = tl._walk_plain(b, c, n, E)
+        for B in (16, tl.K4_BLOCK):
+            assert _same(tl._walk_split(b, c, n, E, B), want)
+
+
+def _one_sequence(row, cs: int, p: int):
+    """The JAX walk's phases for the token at p, one step (eight extension
+    bytes) at a time, without the op checks: (kind, litlen, ipl, offv,
+    mlen, nxt) as _seq_table gives them; for an error or the end, the
+    fields the table defines there."""
+    lim = min(cs, len(row))
+
+    def byte(x):
+        return int(row[x]) if 0 <= x < lim else 0
+
+    def ext(ip, first, acc):
+        """(err, k255 and lastb of the last step, its ip)."""
+        while True:
+            e = ip + first
+            w = [byte(e + i) for i in range(8)]
+            k = next((i for i in range(8) if w[i] != 255), 8)
+            if k < 8:
+                return False, acc + 255 * k + w[k], e + k + 1
+            if ip + 8 >= cs:
+                return True, 0, 0
+            ip, acc = e + 8, acc + 255 * 8
+            first = 0
+
+    tok = byte(p)
+    if tok >> 4 == 15:
+        err, litlen, ipl = ext(p, 1, 15)
+        if err:
+            return (tl._LIT_ERR,)
+    else:
+        litlen, ipl = tok >> 4, p + 1
+    ip2 = ipl + litlen
+    if ip2 > cs:
+        return (tl._LIT_ERR,)
+    if ip2 >= cs:
+        return (tl._FIN, litlen, ipl)
+    offv = byte(ip2) | byte(ip2 + 1) << 8
+    if tok & 15 == 15:
+        err, m, ip3 = ext(ip2, 2, 15)
+        if err:
+            return (tl._MATCH_ERR, litlen, ipl)
+        mlen = 4 + m
+    else:
+        mlen, ip3 = 4 + (tok & 15), ip2 + 2
+    if offv == 0 or ip3 > cs:
+        return (tl._MATCH_ERR, litlen, ipl)
+    return (tl._CONT, litlen, ipl, offv, mlen, ip3)
+
+
+def test_seq_table_matches_the_step_by_step_machine(edge_rows):
+    """Pass 1's closed form (255-runs from a reverse scan, the check of the
+    last 8-byte step) against the JAX machine's steps at sampled positions
+    of every edge row: inside long runs, at runs cut near csize, in rows
+    of 255 bytes."""
+    buf, cs, groups, n, _ = edge_rows
+    rows = sum(groups.values(), [])
+    tab = tl._seq_table(torch.from_numpy(buf[rows]),
+                        torch.from_numpy(cs[rows]))
+    rng = np.random.default_rng(3)
+    keys = ("kind", "litlen", "ipl", "offv", "mlen", "nxt")
+    for i, r in enumerate(rows):
+        lim = min(int(cs[r]), buf.shape[1])
+        pos = np.unique(np.concatenate([rng.integers(0, max(lim, 1), 60),
+                                        np.arange(max(lim - 40, 0), lim)]))
+        for p in pos.tolist():
+            want = _one_sequence(buf[r], int(cs[r]), p)
+            got = tuple(int(tab[k][i, p]) for k in keys[:len(want)])
+            assert got == want, (r, p)
+
+
+def test_exit_tables_and_entries_follow_the_chain(edge_rows):
+    """Pass 1's exit tables against the successor table followed one node
+    at a time, and pass 2's entries against the chain from position 0:
+    every entered block is entered at the first chain position in it."""
+    buf, cs, groups, n, _ = edge_rows
+    B, E = 64, ts.record_slots(ts.high_records(n))
+    b, c = torch.from_numpy(buf), torch.from_numpy(cs)
+    tab = tl._seq_table(b, c)
+    ex = tl._exit_tables(tab, c, B)
+    ent, entered, term = tl._block_entries(tab, ex, c, n, E, B)
+    rng = np.random.default_rng(4)
+    for r in groups["straddle"] + groups["dense"] + groups["late_error"]:
+        lim = min(int(cs[r]), buf.shape[1])
+        for x in rng.integers(0, lim, 40).tolist():
+            y, nrec, op = x, 0, 0
+            bend = min((x // B + 1) * B, lim)
+            while (int(tab["kind"][r, y]) == tl._CONT
+                   and int(tab["nxt"][r, y]) < bend):
+                nrec += 1 + (int(tab["litlen"][r, y]) > 0)
+                op += int(tab["litlen"][r, y]) + int(tab["mlen"][r, y])
+                y = int(tab["nxt"][r, y])
+            assert (int(ex["P"][r, x]), int(ex["nrec"][r, x]),
+                    int(ex["opsum"][r, x])) == (y, nrec, op)
+        chain, p = [], 0
+        while p < lim and int(tab["kind"][r, p]) == tl._CONT:
+            chain.append(p)
+            p = int(tab["nxt"][r, p])
+        chain.append(p)
+        for j in torch.nonzero(entered[r]).flatten().tolist():
+            first = next(q for q in chain if q // B == j)
+            assert int(ent["e"][r, j]) == first
+        assert int(term[r]) >= int(torch.nonzero(entered[r]).max())
+
+
+@pytest.mark.cuda
+def test_lz4_walk_kernel_matches_plain_on_block_edge_rows(cuda):
+    """K4 against _walk_plain (host) on the edge rows at the default and
+    escalated budgets and at 96 records."""
+    buf, cs, _ = streams.lz4_edge_rows(41)
+    b, c = torch.from_numpy(buf).to(cuda), torch.from_numpy(cs).to(cuda)
+    for E in (ts.record_slots(tl.max_records(8192)),
+              ts.record_slots(ts.high_records(8192)), 96):
+        k = tl.walk(b, c, 8192, E)
+        p = tl._walk_plain(b.cpu(), c.cpu(), 8192, E)
+        for x, y in zip(k[0] + k[1:], p[0] + p[1:]):
+            assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.cuda
+def test_lz4_walk_kernel_on_the_clevel5_chunk(cuda):
+    """K4 on the 4 MB synth LZ4 clevel-5 chunk's rows (numcodecs' default
+    codec): two dense and two short rows equal _walk_plain (host) at both
+    budgets; 32 copies of the 24 live rows in one launch equal 32 copies
+    of their outputs; the byte API decodes the chunk on the card."""
+    data = synth(4 << 20, 8, 19).tobytes()
+    chunk = teng.compress_chunk(teng.build_context(
+        5, C.SHUFFLE, 8, len(data), len(data) + 16, C.LZ4), data)
+    hdr_n = 131072
+    offs, css = th._split_table(np.frombuffer(chunk, np.uint8),
+                                read_bstarts(chunk, 4), 8)
+    live = [i for i in range(len(css)) if 0 < css[i] < hdr_n]
+    buf = np.zeros((len(live), hdr_n + 64), np.uint8)
+    whole = np.frombuffer(chunk, np.uint8)
+    for r, i in enumerate(live):
+        buf[r, :css[i]] = whole[offs[i]:offs[i] + css[i]]
+    b = torch.from_numpy(buf).to(cuda)
+    c = torch.from_numpy(css[live].astype(np.int32)).to(cuda)
+    pick = torch.cat([torch.nonzero(c > hdr_n // 2).flatten()[:2],
+                      torch.nonzero(c <= hdr_n // 2).flatten()[:2]])
+    assert pick.numel() == 4
+    for mr in (tl.max_records(hdr_n), ts.high_records(hdr_n)):
+        E = ts.record_slots(mr)
+        k = tl.walk(b[pick].contiguous(), c[pick].contiguous(), hdr_n, mr)
+        p = tl._walk_plain(b[pick].cpu(), c[pick].cpu(), hdr_n, E)
+        for x, y in zip(k[0] + k[1:], p[0] + p[1:]):
+            assert torch.equal(x.cpu(), y)
+        k1 = tl.walk(b, c, hdr_n, mr)
+        k32 = tl.walk(b.repeat(32, 1), c.repeat(32), hdr_n, mr)
+        for x, y in zip(k32[0] + k32[1:], k1[0] + k1[1:]):
+            assert torch.equal(x, y.repeat(32, *([1] * (y.dim() - 1))))
+    assert tb.decompress_ctx(chunk, device=cuda) == data
