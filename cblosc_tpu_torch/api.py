@@ -14,9 +14,11 @@ snappy, zlib and zstd chunks compress on the host engine and decompress
 on the device (zstd blocks above 512 KB decode on the host engine, as in
 the JAX package).
 
-Not ported yet: compress at clevel >= 5
-(adaptive-distance mining), getitem, global state, BLOSC_* environment
-overrides and threads.
+Every clevel compresses on the device for blosclz, lz4 and lz4hc; the
+ratio clevels (>= 5) mine per-row adaptive match distances there.
+
+Not ported yet: getitem, global state, BLOSC_* environment overrides
+and threads.
 """
 
 from __future__ import annotations
@@ -45,10 +47,13 @@ def compress_ctx(
     destsize: int | None = None,
     compressor: str = "blosclz",
     blocksize: int = 0,
+    splitmode: int = C.FORWARD_COMPAT_SPLIT,
     device=None,
 ) -> bytes:
     """Stateless compression (blosc_compress_ctx). Returns the serialized
-    chunk, or b"" when the data does not fit ``destsize``."""
+    chunk, or b"" when the data does not fit ``destsize``. splitmode is
+    one of ALWAYS_SPLIT, NEVER_SPLIT, AUTO_SPLIT and FORWARD_COMPAT_SPLIT
+    (the default), as in the JAX package."""
     dev = device_mod.resolve(device)
     data = _coerce_src(src)
     nbytes = len(data)
@@ -59,7 +64,7 @@ def compress_ctx(
         raise ValueError(f"unknown compressor '{compressor}'")
     ctx = engine.build_context(
         clevel, doshuffle, typesize, nbytes, destsize, code,
-        forced_blocksize=blocksize,
+        forced_blocksize=blocksize, splitmode=splitmode,
     )
     out = host_api.compress_chunk(ctx, data, dev)
     if out is None:

@@ -14,11 +14,15 @@ over that format, reproduced byte for byte:
     segmentation (cummax/cummin) and a prefix-sum layout
     (:func:`_emit_full`); HOPELESS rows (estimated ratio below the
     clevel's entropy-probe threshold, blosclz.c:425-435) report
-    csize = n and are stored raw by the caller.
-
-Mining per-row adaptive distances (clevel >= 5) is not ported yet:
-``encode(..., mine=True)`` raises NotImplementedError rather than emit
-different bytes.
+    csize = n and are stored raw by the caller;
+  * at the ratio clevels (``encode(..., mine=True)``, clevel >= 5)
+    :func:`mine_group` mines a per-row adaptive distance, the modal gap
+    between repeated 4-grams on a 4 KB prefix and on a hash-folded copy
+    of the whole row, verified by its exact coverage; runs at that
+    distance claim their positions before the static class, distances
+    above 8191 take the far escape (blosclz.c:733-744). NORMAL rows are
+    mined and emitted; HOPELESS rows are mined and emitted only where a
+    distance is adopted.
 
 The generic decoder accepts any blosclz stream. :func:`decode` launches
 the hand-written kernel (csrc/decode.cu, a CTA of three pipelined warps
@@ -44,6 +48,15 @@ _MIN_DECODE_W = _FASTLIT * 33 + 24   # the JAX decoder's padded row width
 # arithmetic ramps and strided layouts, 3 covers RGB-ish strides. All
 # < 8192, so the near-distance form always fits.
 DISTANCES = (1, 2, 3, 4, 8, 16, 32, 128, 256)
+
+# blosclz far-distance form: dist = (b1 << 8 | b2) + 8192 after the
+# 31/255 escape (blosclz.c:733-744)
+MAX_FARDIST = 8192 + 65535
+_MINRUN_MINED = 16          # min run length of a mined-distance match
+_MINE_PREFIX = 4096         # the exact miner's prefix
+_FOLD_G = 16                # the fold miner's group below 128 KB rows
+_BIGU = 0xFFFFFFFF          # gram key of "no gram here"
+_BIGI = 0x7FFFFFFF          # gap of "no usable gap"
 
 
 def slot_width(n: int) -> int:
@@ -148,6 +161,114 @@ def _emit_pure(s: torch.Tensor, d_vec: torch.Tensor, W: int):
     return slots, csize, est
 
 
+def _mine_distance(s: torch.Tensor, min_gap: int = 4,
+                   max_gap: int = MAX_FARDIST):
+    """Per-row adaptive match distance: the modal gap between repeated
+    4-grams that start where s[i] != s[i-1] (run interiors would drown
+    the large periods in gap-1 repeats). A stable sort on the gram makes
+    each gram's predecessor its nearest earlier occurrence.
+
+    Returns (d, hits), int64 (N,): d in [min_gap, max_gap] with its
+    count of gaps, d = hits = 0 where fewer than 4 gaps agree. A gram of
+    four 255 bytes equals the sentinel _BIGU and is never usable, as in
+    the JAX miner."""
+    N, n = s.shape
+    dev = s.device
+    idx = torch.arange(n, device=dev)[None, :]
+    su = s.to(I64)
+    gram = su
+    for k in range(1, 4):
+        gram = gram | (torch.roll(su, -k, dims=1) << (8 * k))
+    novel = torch.ones_like(s, dtype=torch.bool)
+    novel[:, 1:] = s[:, 1:] != s[:, :-1]
+    novel &= idx < n - 3
+    # keys shifted into int32 keep their order and equalities
+    key = (torch.where(novel, gram, _BIGU) - (1 << 31)).to(torch.int32)
+    sk, si = torch.sort(key, dim=1, stable=True)
+    same = (sk == torch.roll(sk, 1, dims=1)) & (sk != _BIGU - (1 << 31))
+    same[:, 0] = False
+    gap = si - torch.roll(si, 1, dims=1)
+    usable = same & (gap >= min_gap) & (gap <= max_gap)
+    ds = torch.sort(torch.where(usable, gap, _BIGI).to(torch.int32),
+                    dim=1).values.to(I64)
+    # the longest run of equal gaps is the mode; ties go to the first
+    # (smallest) gap, as JAX's argmax does
+    change = torch.ones_like(ds, dtype=torch.bool)
+    change[:, 1:] = ds[:, 1:] != ds[:, :-1]
+    rstart = torch.cummax(torch.where(change, idx, 0), dim=1).values
+    count = torch.where(ds < _BIGI, idx - rstart + 1, 0)
+    hits = count.amax(dim=1)
+    best = torch.where(count == hits[:, None], idx, n).amin(dim=1)
+    d = ds.gather(1, best[:, None])[:, 0]
+    d = torch.where((hits >= 4) & (d < _BIGI), d, 0)
+    return d, torch.where(d > 0, hits, 0)
+
+
+def _fold_g(n: int) -> int:
+    """The fold miner's group: 32 bytes on rows of 128 KB and more (the
+    clevel-9 geometry), else 16."""
+    return 32 if n >= 131072 else _FOLD_G
+
+
+def _fold(s: torch.Tensor, G: int) -> torch.Tensor:
+    """Fold every G bytes to one hash byte: 4 equal consecutive hash
+    bytes at group gap g stand (whp) for a 4G-byte repeat at byte
+    distance G*g."""
+    N, n = s.shape
+    # the weights ((2654435761 * (k + 1)) >> 13) & 0xFF, made on the
+    # device (a host copy would wait for the stream)
+    k = torch.arange(1, G + 1, dtype=I64, device=s.device)
+    w = (((2654435761 * k) >> 13) & 0xFF).to(torch.int32)
+    h = (s.reshape(N, n // G, G).to(torch.int32) * w).sum(
+        dim=2, dtype=torch.int32)                # <= 255 * 255 * G: exact
+    return ((h ^ (h >> 8) ^ (h >> 16)) & 0xFF).to(U8)
+
+
+def _eq_at(s: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """(N, n) bool: s[i] == s[i - d_row] where i >= d_row and i < n - 1
+    (the trailing-literal rule); no position where d_row > n."""
+    N, n = s.shape
+    idx = torch.arange(n, device=s.device)[None, :]
+    d = d.to(I64)[:, None]
+    prev = s.gather(1, torch.clamp(idx - d, min=0))
+    return (s == prev) & (idx >= d) & (idx < n - 1)
+
+
+def mine_group(s: torch.Tensor, d_row: torch.Tensor,
+               max_d: int = MAX_FARDIST):
+    """The two miners and one exact verification, per row.
+
+    The exact miner reads the first 4 KB of rows of 1 KB and more; the
+    fold miner reads the whole row folded G:1 (rows of 32 KB and more,
+    distances that are multiples of G). The candidate with more hits
+    (byte-scaled) is verified; a row adopts it when it covers at least
+    n/6 positions and differs from the row's static distance.
+
+    Returns (d_m int64 (N,), 0 = not adopted; eq_m bool (N, n), empty on
+    rows that adopt nothing)."""
+    N, n = s.shape
+    zero = torch.zeros(N, dtype=I64, device=s.device)
+    if n >= 1024:
+        dp, hp = _mine_distance(s[:, :min(n, _MINE_PREFIX)])
+    else:
+        dp = hp = zero
+    FG = _fold_g(n)
+    if n >= 32768 and n % FG == 0:
+        dg, hg = _mine_distance(_fold(s, FG), 1, max_d // FG)
+        dg = dg * FG
+        dg = torch.where(dg < n, dg, 0)
+        hg = torch.where(dg > 0, hg * FG, 0)     # hits count FG-byte groups
+    else:
+        dg = hg = zero
+    dp = torch.where(dp <= max_d, dp, 0)
+    hp = torch.where(dp > 0, hp, 0)
+    d = torch.where(hg > hp, dg, dp)
+    eq_m = _eq_at(s, torch.clamp(d, min=1))
+    cov = torch.where(d > 0, eq_m.sum(dim=1), -1)
+    adopt = (cov >= n // 6) & (d > 0) & (d != d_row.reshape(-1))
+    return torch.where(adopt, d, 0), eq_m & adopt[:, None]
+
+
 def _segment(eq: torch.Tensor, min_len, idx: torch.Tensor):
     """Run segmentation of an eq mask: one token per maximal run.
     Returns (is_match, sub_start, suboff, sub_len) per position."""
@@ -164,12 +285,19 @@ def _segment(eq: torch.Tensor, min_len, idx: torch.Tensor):
     return is_match, sub_start, suboff, runlen
 
 
-def _emit_full(s: torch.Tensor, eq: torch.Tensor, d_row: torch.Tensor):
+def _emit_full(s: torch.Tensor, eq: torch.Tensor, d_row: torch.Tensor,
+               mined=None):
     """Segmentation + prefix-sum layout emission (any row shape).
+
+    With mined = (d_m, eq_m) from :func:`mine_group`, runs of at least
+    _MINRUN_MINED at the mined distance claim their positions first and
+    the static class segments what is left.
 
     Every output byte has a unique position (a literal's byte, the
     control byte opening each 32-byte literal chunk, each token byte on
-    the first positions of its match), so the stream is written with two
+    the first positions of its match: a token of more than 2 bytes
+    needs a static run of at least 9 or a mined one, whose 4 + kext
+    bytes fit its >= 16 positions), so the stream is written with two
     scatters: the JAX package's key sort over (pos << 8 | byte) yields
     the same bytes."""
     N, n = s.shape
@@ -177,8 +305,18 @@ def _emit_full(s: torch.Tensor, eq: torch.Tensor, d_row: torch.Tensor):
     W = slot_width(n)
     idx = torch.arange(n, device=dev)[None, :]
 
-    is_match, sub_start, suboff, sub_len = _segment(eq, 3, idx)
-    d_pos = d_row.to(I64).expand(N, n)
+    if mined is not None:
+        d_m, eq_m = mined
+        m2, ss2, so2, sl2 = _segment(eq_m, _MINRUN_MINED, idx)
+        m1, ss1, so1, sl1 = _segment(eq & ~m2, 3, idx)
+        is_match = m1 | m2
+        sub_start = torch.where(m2, ss2, ss1)
+        suboff = torch.where(m2, so2, so1)
+        sub_len = torch.where(m2, sl2, sl1)
+        d_pos = torch.where(m2, d_m.to(I64)[:, None], d_row.to(I64))
+    else:
+        is_match, sub_start, suboff, sub_len = _segment(eq, 3, idx)
+        d_pos = d_row.to(I64).expand(N, n)
     far = is_match & (d_pos > 8191)              # 31/255 escape + 2 bytes
     v = sub_len - 3                              # wire len field
     kext = torch.where(v >= 6, (v - 6) // 255 + 1, 0)
@@ -235,13 +373,33 @@ def _emit_full(s: torch.Tensor, eq: torch.Tensor, d_row: torch.Tensor):
     return slots.contiguous(), csize, est_iters
 
 
-def _emit_full_grouped(s: torch.Tensor, d_row: torch.Tensor, dists: tuple):
+def _emit_full_grouped(s: torch.Tensor, d_row: torch.Tensor, dists: tuple,
+                       mine: bool = False, emit_all: bool = True):
     """_emit_full over row groups (rows are independent; groups bound the
-    int64 workspace to ~64 MB per intermediate)."""
+    int64 workspace to ~64 MB per intermediate), each group mined first
+    when mine is set. emit_all False emits only the rows that adopt a
+    mined distance (the HOPELESS rows' rule); the others report csize n,
+    est 0 and zero slots."""
     N, n = s.shape
+    dev = s.device
+    W = slot_width(n)
     g = max(1, (8 << 20) // max(n, 1))
-    parts = [_emit_full(s[i:i + g], _eq_for(s[i:i + g], d_row[i:i + g], dists),
-                        d_row[i:i + g]) for i in range(0, N, g)]
+    parts = []
+    for i in range(0, N, g):
+        sg, dg = s[i:i + g], d_row[i:i + g]
+        mined = mine_group(sg, dg) if mine else None
+        if emit_all:
+            parts.append(_emit_full(sg, _eq_for(sg, dg, dists), dg, mined))
+            continue
+        dm, eq_m = mined
+        sl = torch.zeros((sg.shape[0], W), dtype=U8, device=dev)
+        cs = torch.full((sg.shape[0],), n, dtype=I64, device=dev)
+        es = torch.zeros(sg.shape[0], dtype=I64, device=dev)
+        r = torch.nonzero(dm > 0).flatten()
+        if r.numel():
+            sl[r], cs[r], es[r] = _emit_full(
+                sg[r], _eq_for(sg[r], dg[r], dists), dg[r], (dm[r], eq_m[r]))
+        parts.append((sl, cs, es))
     return tuple(torch.cat([p[k] for p in parts]) for k in range(3))
 
 
@@ -253,22 +411,24 @@ def encode(s: torch.Tensor, dists: tuple = DISTANCES,
     (N,), est_iters int32 (N,)). est_iters estimates the JAX decoder's
     loop iterations (the caller's stored-raw speed policy). Rows that do
     not compress report csize >= n and the caller stores them raw
-    (blosc.c:705-714).
+    (blosc.c:705-714). mine (clevel >= 5) layers mined adaptive
+    distances in (:func:`mine_group`).
 
-    Bytes, csizes and est_iters equal cblosc_tpu.tpu.codec.encode's on
-    every row, including the don't-care slots of HOPELESS rows: those
-    carry the first NORMAL row's emission and est_iters (the JAX
-    grouped map reads them from its slot 0), or their own closed-form
-    emission when no row is NORMAL."""
-    if mine:
-        raise NotImplementedError(
-            "adaptive-distance mining (clevel >= 5) is not ported yet")
+    Csizes equal cblosc_tpu.tpu.codec.encode's on every row, bytes and
+    est_iters on every row with csize < n. Without mining they are equal
+    on the others too (the don't-care slots of HOPELESS rows carry the
+    first NORMAL row's emission and est_iters, which the JAX grouped map
+    reads from its slot 0, or their own closed-form emission when no
+    row is NORMAL); with mining a HOPELESS row that adopts nothing
+    reports zero slots and est 0, where JAX gives its group's outcome."""
     N, n = s.shape
     W = slot_width(n)
     d_row, pure, cov, total = _score(s, dists)
 
     if N <= 8 or n < 8:  # the JAX encoder's small-batch branch: no classes
-        slots, csize, est = _emit_full(s, _eq_for(s, d_row, dists), d_row)
+        mined = mine_group(s, d_row) if (mine and n >= 1024) else None
+        slots, csize, est = _emit_full(s, _eq_for(s, d_row, dists), d_row,
+                                       mined)
         return slots, csize.to(torch.int32), est.to(torch.int32)
 
     # entropy-probe analog: matched bytes ~ cov
@@ -281,13 +441,22 @@ def encode(s: torch.Tensor, dists: tuple = DISTANCES,
     est = torch.where(pure, est, 0)
     rows = torch.nonzero(normal).flatten()
     if rows.numel():
-        sl_n, cs_n, es_n = _emit_full_grouped(s[rows], d_row[rows], dists)
-        hrows = torch.nonzero(hopeless).flatten()
-        slots[hrows] = sl_n[0]
-        est[hrows] = es_n[0]
+        sl_n, cs_n, es_n = _emit_full_grouped(s[rows], d_row[rows], dists,
+                                              mine)
+        if not mine:
+            hrows = torch.nonzero(hopeless).flatten()
+            slots[hrows] = sl_n[0]
+            est[hrows] = es_n[0]
         slots[rows] = sl_n
         csize[rows] = cs_n
         est[rows] = es_n
+    if mine:
+        # HOPELESS rows can hold large-period structure only mining sees:
+        # they keep an emission where a distance is adopted
+        hrows = torch.nonzero(hopeless).flatten()
+        if hrows.numel():
+            slots[hrows], csize[hrows], est[hrows] = _emit_full_grouped(
+                s[hrows], d_row[hrows], dists, True, emit_all=False)
     return slots, csize.to(torch.int32), est.to(torch.int32)
 
 

@@ -11,7 +11,11 @@ chunks carry the same wire format.
     A literal stretch's token carries the FOLLOWING match's length
     nibble (a reverse fill); matches are >= 4 bytes, never start in the
     last 12 bytes and never reach into the last 5 (MFLIMIT /
-    LASTLITERALS), and a maximal run is one sequence.
+    LASTLITERALS), and a maximal run is one sequence. At the ratio
+    clevels (``encode(..., mine=True)``) the blosclz encoder's
+    :func:`codec.mine_group`, capped at the 16-bit offset, layers a
+    mined distance's runs in first; a run that abuts an earlier one
+    carries its own zero-literal token.
   * The decoder walks sequences into compacted records — the
     hand-written kernel K4 (csrc/lz4_walk.cu) on a CUDA tensor,
     :func:`_walk_plain` on a CPU tensor — and places them with the
@@ -19,9 +23,6 @@ chunks carry the same wire format.
     Rows the walk rejects report err; the byte API then retries with a
     wider budget and, failing that, decodes the chunk on the host, as
     the JAX package does.
-
-Mining per-row adaptive distances (clevel >= 5) is not ported:
-``encode(..., mine=True)`` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -64,14 +65,12 @@ def encode(s: torch.Tensor, dists: tuple = codec.DISTANCES,
 
     s: uint8 (N, n). Returns (slots uint8 (N, slot_width(n)), csizes
     int32 (N,), est_iters int32 (N,)), equal to
-    cblosc_tpu.tpu.codec_lz4.encode's on every row. Rows whose estimated
+    cblosc_tpu.tpu.codec_lz4.encode's on every row; with mining, bytes
+    and est_iters on every row with csize < n. Rows whose estimated
     ratio falls below min_cratio_x100/100 report csize n, est 0 and zero
     slots without being emitted (JAX runs its groups of such rows through
-    the same raw branch). Rows too wide for the int32 keys (see
-    :func:`fits`) raise ValueError."""
-    if mine:
-        raise NotImplementedError(
-            "adaptive-distance mining (clevel >= 5) is not ported yet")
+    the same raw branch), unless mining adopts a distance on them. Rows
+    too wide for the int32 keys (see :func:`fits`) raise ValueError."""
     N, n = s.shape
     if not fits(n):
         raise ValueError(f"LZ4 rows of {n} bytes overflow the encoder's "
@@ -94,7 +93,7 @@ def encode(s: torch.Tensor, dists: tuple = codec.DISTANCES,
     # selects the grouped branch is kept, exactly (N counts the rows of
     # this call: gpu.pipeline keeps JAX's encode groups for that reason)
     if not (min_cratio_x100 and N > 8 and n >= 8):
-        return _emit_grouped(s, d_row, dists)
+        return _emit_grouped(s, d_row, dists, mine and n >= 1024)
     cov = stack.max(dim=0).values
     est_csize = n - cov + cov // 170 + n // 33 + 16
     hopeless = 100 * n < min_cratio_x100 * est_csize
@@ -104,19 +103,45 @@ def encode(s: torch.Tensor, dists: tuple = codec.DISTANCES,
     rows = torch.nonzero(~hopeless).flatten()
     if rows.numel():
         slots[rows], csize[rows], est[rows] = _emit_grouped(
-            s[rows], d_row[rows], dists)
+            s[rows], d_row[rows], dists, mine)
+    if mine:
+        # hopeless rows are mined too, and emitted where a distance is
+        # adopted
+        rows = torch.nonzero(hopeless).flatten()
+        if rows.numel():
+            slots[rows], csize[rows], est[rows] = _emit_grouped(
+                s[rows], d_row[rows], dists, True, emit_all=False)
     return slots, csize, est
 
 
-def _emit_grouped(s: torch.Tensor, d_row: torch.Tensor, dists: tuple):
+def _emit_grouped(s: torch.Tensor, d_row: torch.Tensor, dists: tuple,
+                  mine: bool = False, emit_all: bool = True):
     """_emit over row groups (rows are independent; groups bound the
-    int32 workspace to ~32 MB per intermediate)."""
+    int32 workspace to ~32 MB per intermediate), each group mined first
+    (codec.mine_group, 16-bit offsets) when mine is set. emit_all False
+    emits only the rows that adopt a mined distance; the others report
+    csize n, est 0 and zero slots."""
     N, n = s.shape
+    dev = s.device
     g = max(1, (8 << 20) // max(n, 1))
-    parts = [_emit(s[i:i + g],
-                   codec._eq_for(s[i:i + g], d_row[i:i + g], dists,
-                                 last_lit=False),
-                   d_row[i:i + g]) for i in range(0, N, g)]
+    parts = []
+    for i in range(0, N, g):
+        sg, dg = s[i:i + g], d_row[i:i + g]
+        mined = codec.mine_group(sg, dg, max_d=0xFFFF) if mine else None
+        if emit_all:
+            parts.append(_emit(sg, codec._eq_for(sg, dg, dists,
+                                                 last_lit=False), dg, mined))
+            continue
+        dm, eq_m = mined
+        sl = torch.zeros((sg.shape[0], slot_width(n)), dtype=U8, device=dev)
+        cs = torch.full((sg.shape[0],), n, dtype=I32, device=dev)
+        es = torch.zeros(sg.shape[0], dtype=I32, device=dev)
+        r = torch.nonzero(dm > 0).flatten()
+        if r.numel():
+            sl[r], cs[r], es[r] = _emit(
+                sg[r], codec._eq_for(sg[r], dg[r], dists, last_lit=False),
+                dg[r], (dm[r], eq_m[r]))
+        parts.append((sl, cs, es))
     if len(parts) == 1:
         return parts[0]
     return tuple(torch.cat([p[k] for p in parts]) for k in range(3))
@@ -127,33 +152,57 @@ def _rfill_min(x: torch.Tensor) -> torch.Tensor:
     return torch.flip(torch.cummin(torch.flip(x, [1]), dim=1).values, [1])
 
 
-def _segment(eq: torch.Tensor, idx: torch.Tensor, n: int):
+def _segment(eq: torch.Tensor, min_len: int, idx: torch.Tensor, n: int):
     """LZ4-rule run segmentation: one sequence per maximal run (the
-    255-extension length is unbounded). Runs shorter than 4 demote to
-    literals; no match may START in the last 12 bytes (MFLIMIT).
+    255-extension length is unbounded). Runs shorter than min_len demote
+    to literals; no match may START in the last 12 bytes (MFLIMIT).
     Returns (is_match, roff = offset in the run, runlen)."""
     noneq = torch.where(eq, -1, idx)
     run_start = torch.cummax(noneq, dim=1).values + 1
     next_noneq = _rfill_min(torch.where(eq, n, idx))
     runlen = next_noneq - run_start
-    is_match = eq & (runlen >= 4) & (run_start < n - 12)
+    is_match = eq & (runlen >= min_len) & (run_start < n - 12)
     return is_match, idx - run_start, runlen
 
 
-def _emit(s: torch.Tensor, eq: torch.Tensor, d_row: torch.Tensor):
-    """LZ4 scan + sort emission (codec_lz4._emit without mining).
+def _emit(s: torch.Tensor, eq: torch.Tensor, d_row: torch.Tensor,
+          mined=None):
+    """LZ4 scan + sort emission (codec_lz4._emit).
 
-    Without mining a match run never abuts another (runs are maximal and
-    the position after one is not equal), so no sub-match carries its
-    own zero-literal token: the JAX emission's `later` is all False and
-    every match train is [off_lo][off_hi][ext...]."""
+    With mined = (d_m, eq_m) from codec.mine_group, runs of at least
+    codec._MINRUN_MINED at the mined distance claim their positions
+    first and the static class segments the rest. A match run then may
+    abut another (a mined run next to a static one, no literal between):
+    the stretch token before them belongs to the earlier run, so the
+    later one carries its own zero-literal token and its train is
+    [token][off_lo][off_hi][ext...]. Without mining runs are maximal and
+    never abut: every train is [off_lo][off_hi][ext...]."""
     N, n = s.shape
     W = slot_width(n)
     dev = s.device
     idx = torch.arange(n, dtype=I32, device=dev)[None, :]
 
     eq = eq & (idx < n - 5)                # last 5 bytes stay literal
-    is_match, suboff, sub_len = _segment(eq, idx, n)
+    if mined is not None:
+        d_m, eq_m = mined
+        m2, ro2, sl2 = _segment(eq_m & (idx < n - 5), codec._MINRUN_MINED,
+                                idx, n)
+        m1, ro1, sl1 = _segment(eq & ~m2, 4, idx, n)
+        is_match = m1 | m2
+        suboff = torch.where(m2, ro2, ro1)
+        sub_len = torch.where(m2, sl2, sl1)
+        d_pos = torch.where(m2, d_m.to(I32)[:, None], d_row.to(I32))
+        # a run that starts right after another match position abuts it
+        prev_m = torch.zeros_like(is_match)
+        prev_m[:, 1:] = is_match[:, :-1]
+        seedv = torch.where((suboff == 0) & is_match,
+                            (idx << 1) | prev_m.to(I32), -1)
+        later = is_match & (
+            (torch.cummax(seedv, dim=1).values & 1) == 1)
+    else:
+        is_match, suboff, sub_len = _segment(eq, 4, idx, n)
+        d_pos = d_row.to(I32)
+        later = None
     sub_start = is_match & (suboff == 0)
     ml = sub_len - 4                       # token match nibble basis
     km = torch.where(ml >= 15, (ml - 15) // 255 + 1, 0)
@@ -175,7 +224,7 @@ def _emit(s: torch.Tensor, eq: torch.Tensor, d_row: torch.Tensor):
 
     # -- per-position output contributions ----------------------------------
     in_lext = lit & (lit_off >= 1) & (lit_off <= kl)
-    train_len = 2 + km
+    train_len = 2 + km if later is None else torch.where(later, 3, 2) + km
     c = (torch.where(lit, 1 + is_start.to(I32) + in_lext.to(I32), 0)
          + torch.where(sub_start, train_len, 0)).to(I32)
     cum = torch.cumsum(c, dim=1, dtype=I32)
@@ -198,10 +247,14 @@ def _emit(s: torch.Tensor, eq: torch.Tensor, d_row: torch.Tensor):
     tok_lit = (torch.clamp(L, max=15) << 4) | torch.where(
         next_ml >= 0, torch.clamp(next_ml, 0, 15), 0)
     data_dst = off_s + 1 + kl + lit_off
-    d_pos = d_row.to(I32)
-    ext = torch.clamp(ml - 15 - 255 * (suboff - 2), 0, 255)
-    seq_byte = torch.where(suboff == 0, d_pos & 255,
-                           torch.where(suboff == 1, d_pos >> 8, ext))
+    # byte j of a train: [token]? off_lo off_hi ext...
+    jj = suboff if later is None else suboff - later.to(I32)
+    ext = torch.clamp(ml - 15 - 255 * (jj - 2), 0, 255)
+    seq_byte = torch.where(jj == 0, d_pos & 255,
+                           torch.where(jj == 1, d_pos >> 8, ext))
+    if later is not None:
+        seq_byte = torch.where(later & (suboff == 0),
+                               torch.clamp(ml, max=15), seq_byte)
     tbase = torch.where(sub_start, off, off - train_len)
 
     val0 = torch.where(lit, s.to(I32), seq_byte)

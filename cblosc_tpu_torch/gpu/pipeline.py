@@ -29,8 +29,9 @@ I32 = torch.int32
 U8 = torch.uint8
 
 # Blocks per encode sub-batch: the JAX pipeline encodes 64 MB of blocks
-# per program, and the encoder's small-batch branch (<= 8 rows) depends
-# on that grouping, so the port keeps it for byte parity.
+# per program, in encode calls of 64 MB of rows (32 MB when mining), and
+# the encoder's small-batch branch (<= 8 rows) depends on that grouping,
+# so the port keeps it for byte parity.
 _ENCODE_GROUP_BYTES = 64 << 20
 
 # compcodes with a device encoder (LZ4HC chunks carry the LZ4 wire format)
@@ -72,7 +73,8 @@ def _decoder(compcode: int):
 def _encode_grouped(streams: torch.Tensor, mod, min_cratio_x100: int,
                     mine: bool):
     rows, n = streams.shape
-    group = max(_ENCODE_GROUP_BYTES // max(n, 1), 8)
+    group_bytes = _ENCODE_GROUP_BYTES // (2 if mine else 1)
+    group = max(group_bytes // max(n, 1), 8)
     if rows <= group:
         return mod.encode(streams, codec.DISTANCES, min_cratio_x100, mine)
     pad = (-rows) % group

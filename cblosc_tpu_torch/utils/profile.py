@@ -7,7 +7,10 @@ Run on a machine with an NVIDIA GPU, from the repository root:
 For the bench geometry (clevel 1, 4 MB chunks, shuffle) on two data
 sets (``synth`` sbits 19 typesize 8, the bench data; int32 arange
 typesize 4, whose decode runs the walk and expand kernels) with blosclz,
-and on ``synth`` with LZ4 (whose decode runs the LZ4 walk), it profiles
+on ``synth`` with LZ4 (whose decode runs the LZ4 walk), and on ``synth``
+with blosclz at clevels 5 and 9 (128 KB and 256 KB splits, mining;
+there also ``gpu.codec.mine_group`` alone over the streams the compress
+call mines), it profiles
 one steady call each of ``gpu.pipeline.compress_blocks`` and
 ``decompress_blocks``; then one steady byte-API ``decompress_ctx`` each
 of the chunks the host engine writes: a clevel-9 blosclz chunk (256 KB
@@ -77,6 +80,25 @@ def kernel_ms(fn, kernel: str, calls: int = 20) -> float:
     return sum(_device_us(e) for e in hits) / n / 1e3
 
 
+def mined_inputs(fn) -> list:
+    """The arguments (s, d_row, max_d) of every gpu.codec.mine_group call
+    that fn() makes (the encoders look the function up at call time)."""
+    from ..gpu import codec
+
+    seen, orig = [], codec.mine_group
+
+    def record(s, d_row, max_d=codec.MAX_FARDIST):
+        seen.append((s, d_row, max_d))
+        return orig(s, d_row, max_d)
+
+    codec.mine_group = record
+    try:
+        fn()
+    finally:
+        codec.mine_group = orig
+    return seen
+
+
 def _profile(fn, label: str, card: str) -> dict:
     fn()                                           # warm up
     torch.cuda.synchronize()
@@ -116,20 +138,25 @@ def main() -> None:
     ws = args.workset_mb << 20
     dev = torch.device("cuda")
     sy = synth(ws, 8, 19)
-    for name, data, ts, code in (
-            ("synth sbits19 ts8", sy, 8, C.BLOSCLZ),
+    for name, data, ts, code, clevel in (
+            ("synth sbits19 ts8", sy, 8, C.BLOSCLZ, 1),
             ("int32 arange ts4",
-             np.arange(ws // 4, dtype=np.int32).view(np.uint8), 4, C.BLOSCLZ),
-            ("lz4 synth sbits19 ts8", sy, 8, C.LZ4)):
-        bs = policy.compute_blocksize_device(1, ts, 4 << 20)
+             np.arange(ws // 4, dtype=np.int32).view(np.uint8), 4, C.BLOSCLZ,
+             1),
+            ("lz4 synth sbits19 ts8", sy, 8, C.LZ4, 1),
+            ("synth sbits19 ts8 clevel 5", sy, 8, C.BLOSCLZ, 5),
+            ("synth sbits19 ts8 clevel 9", sy, 8, C.BLOSCLZ, 9)):
+        bs = policy.compute_blocksize_device(clevel, ts, 4 << 20)
         nsplits = ts
         neblock = bs // nsplits
         x = torch.from_numpy(data.reshape(-1, bs).copy()).to(dev)
 
         def comp():
             return pipeline.compress_blocks(
-                x, C.SHUFFLE, ts, nsplits, policy.device_min_bytes_per_iter(1),
-                code, policy.device_min_cratio_x100(1), False)
+                x, C.SHUFFLE, ts, nsplits,
+                policy.device_min_bytes_per_iter(clevel), code,
+                policy.device_min_cratio_x100(clevel),
+                policy.device_mine(clevel))
 
         slots, cs = comp()
         rows = pipeline.mask_past_csize(slots, cs, slots.shape[1])
@@ -138,8 +165,14 @@ def main() -> None:
             return pipeline.decompress_blocks(rows, cs, neblock, C.SHUFFLE,
                                               ts, nsplits, code)
 
-        for label, fn in (("compress_blocks", comp),
-                          ("decompress_blocks", dec)):
+        calls = [("compress_blocks", comp), ("decompress_blocks", dec)]
+        if policy.device_mine(clevel):
+            from ..gpu import codec
+
+            seen = mined_inputs(comp)
+            calls.append(("mine_group on the streams compress_blocks mines,",
+                          lambda: [codec.mine_group(*a) for a in seen]))
+        for label, fn in calls:
             r = _profile(fn, f"{label} {name} {ws >> 20} MB", card)
             print(json.dumps(r))
     n = 256 << 10

@@ -53,7 +53,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      on every main-path input (the int32 arange, LZ4, snappy, zlib and
      zstd chunks' rows) it reports the rows that took its per-record
      branch (there must be none) and the largest number of pointer-
-     jumping rounds. The zstd walk
+     jumping rounds. The walk (K2), expand (K1) and the LZ4 walk (K4) are
+     also held and timed on the live rows of the clevel-5 chunks the card
+     wrote (the "cl5_*" keys): K2 and K1 on the blosclz synth and int32
+     arange chunks, whose staircase rows carry mined far-distance
+     matches, K4 on the LZ4 synth chunk (numcodecs' default Blosc()) and
+     a uint8 staircase chunk, whose rows carry mined runs abutting static
+     ones (a zero-literal sequence after a match). The zstd walk
      (zstd_walk) is held, tape and records included, on the generated
      zstd frames of streams.ZSTD_CARD_CASES up to 32 KB (every frame
      feature, corruptions, one-byte flips, random rows) and on a few
@@ -70,7 +76,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the host engine decoded on the card (gpu.host_api.decompress_chunk
      must return them: no host fallback; but the clevel-9 zstd chunk,
      whose 1 MB blocks are above decode_cap, goes to the host engine, as
-     in the JAX package, and a line says so); every launch counter is zeroed just before
+     in the JAX package, and a line says so); chunks at the ratio
+     clevels 5 and 9 written on the card (blosclz synth and int32
+     arange, lz4 and lz4hc synth, an lz4 uint8 staircase), each
+     byte-identical to the port's device="cpu" chunk of the same buffer
+     and decoded on the card (the blosclz synth chunks by the template
+     path alone, the arange chunks by walk and expand, the LZ4 chunks by
+     the LZ4 walk); every launch counter is zeroed just before
      each decode and read just after it, the phase's launches are their
      sum, and each kernel must have launched; then the
      clevel-9 chunk's decode is timed warm (CUDA events, median of 5);
@@ -79,7 +91,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      decompress_blocks, verified equal, timed with CUDA events (call
      time on the stream, host syncs included), with the launch counts
      of its first decode (the int32 arange decode must launch the walk
-     and expand kernels, the LZ4 synth decode the LZ4 walk); and 128 MB
+     and expand kernels, the LZ4 synth decode the LZ4 walk); the same for
+     128 MB of synth at clevels 5 and 9 (128 KB and 256 KB splits,
+     compress_blocks(mine=True)), with mine_group timed alone on the
+     streams the compress call mines; and 128 MB
      of synth in zlib chunks written by the host engine at clevel 5
      (host time printed as such), all their rows decoded by
      decompress_blocks at the escalated budget, verified and timed the
@@ -633,6 +648,75 @@ def _lz4_chunk5(dev, lz4_chunk, reps) -> dict:
     out["chunk5_plain_s"] = plain_s
     out["chunk5_max_abs_err"] = err
     return out
+
+
+def phase_ratio_rows(dev, chunks5, reps) -> dict:
+    """K2, K1 and K4 on the live rows of the clevel-5 chunks the card
+    wrote in run() (128 KB splits): K2 on the blosclz synth and int32
+    arange chunks (the arange chunk's staircase rows carry mined
+    far-distance tokens, d = 65536), K1 on the records K2 makes of them,
+    K4 on the LZ4 synth chunk (numcodecs' default Blosc()) and the LZ4
+    uint8 staircase chunk (whose rows carry a mined run abutting a static
+    one, so a zero-literal sequence follows a match). Each is held to its
+    plain version (K2 and K4 on a host copy, K1 on the card on a few rows)
+    and timed. Returns {kernel: extra keys}, each key prefixed cl5_."""
+    from cblosc_tpu_torch.gpu import codec_lz4, structured
+
+    def rows_of(labels):
+        parts = []
+        for label in labels:
+            rows, cs, n = chunk_rows(dev, chunks5[label])
+            parts.append((*live_rows(rows, cs, n), n))
+        check(len({p[2] for p in parts}) == 1, "clevel-5 splits differ")
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]), parts[0][2])
+
+    rows, cs, n = rows_of([k for k in chunks5 if k.startswith("blosclz")])
+    mr = structured.max_records(n)
+    walk = _walk_entry(dev, structured.walk, structured._walk_plain, "::walk",
+                       rows, cs, n, mr, reps)
+    check(walk["max_abs_err"] == 0,
+          f"walk kernel differs from its plain version on the clevel-5 rows "
+          f"({walk['max_abs_err']})")
+    check(walk["accepted"] == walk["rows"],
+          "every live clevel-5 blosclz row must walk")
+    rf = structured.walk(rows, cs, n, mr)[0]
+    far = int(((rf[0] == 1) & (rf[1] > 8191)).any(dim=1).sum())
+    check(far > 0, "no clevel-5 blosclz row carries a far-distance match")
+    per_row = (rf[0] >= 0).sum(dim=1)
+    held = [int(i) for i in torch.argsort(per_row, descending=True)[:2]]
+    held.append(int(torch.argmin(per_row)))
+    exp = k1_on_rows(dev, "cl5", rows, rf, n, held, reps)
+
+    lrows, lcs, ln = rows_of([k for k in chunks5 if k.startswith("lz4")])
+    lz4 = _walk_entry(dev, codec_lz4.walk, codec_lz4._walk_plain,
+                      "::lz4_walk", lrows, lcs, ln,
+                      codec_lz4.max_records(ln), reps)
+    check(lz4["max_abs_err"] == 0,
+          f"lz4_walk kernel differs from its plain version on the clevel-5 "
+          f"rows ({lz4['max_abs_err']})")
+    check(lz4["accepted"] == lz4["rows"],
+          "every live clevel-5 LZ4 row must walk")
+    kind = codec_lz4.walk(lrows, lcs, ln, codec_lz4.max_records(ln))[0][0]
+    abut = int(((kind[:, 1:] == 1) & (kind[:, :-1] == 1)).sum())
+    check(abut > 0, "no clevel-5 LZ4 row carries abutting sequences")
+    walk.update(far_rows=far)
+    lz4.update(abutting=abut)
+    print(f"kernel inputs, clevel 5 (card-written chunks): {walk['rows']} "
+          f"blosclz rows ({walk['records']} records, {far} rows with a "
+          f"far-distance match), {lz4['rows']} LZ4 rows ({lz4['records']} "
+          f"records, {abut} matches that follow a match), out_len {n}")
+    for name, r in (("walk", walk), ("lz4_walk", lz4)):
+        print(f"kernel {name} on the clevel-5 rows: equal to plain "
+              f"(max_abs_err {r['max_abs_err']}); {r['ms']:.4f} ms per call "
+              f"alone (CUDA events); {r['device_ms']:.4f} ms on the card "
+              f"({_device_label(r['device_ms_source'])}); plain "
+              f"{r['plain_ms']:.4f} ms (on the host); bound "
+              f"{r['bound_ms']:.6f} ms")
+    print_k1_rows(exp, "cl5", "the clevel-5 blosclz rows")
+    return {"walk": {f"cl5_{k}": v for k, v in walk.items()},
+            "lz4_walk": {f"cl5_{k}": v for k, v in lz4.items()},
+            "expand": exp}
 
 
 # K1's branch on every main-path input: (label, rows, rows on the
@@ -1226,13 +1310,16 @@ def phase_kernels(dev, chunk_bytes, host_chunk, reps):
 
 
 def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks,
-                   host_only=()):
+                   host_only=(), ratio_chunks=()):
     """The main path through the entry points a user calls.
     codec_chunks: [(label, data, chunk, walk kernel)] of host-engine LZ4,
     snappy, zlib and zstd chunks, each decoded through gpu.host_api on
     the card; host_only: [(label, data, chunk)] that gpu.host_api must
     decline (the JAX package's bridge declines them too), decoded by the
-    byte API on the host engine."""
+    byte API on the host engine; ratio_chunks: [(label, data, chunk
+    written by the card, chunk written by the port on the CPU, kernels
+    its decode must launch)] at clevels 5 and 9, each chunk equal to the
+    CPU's and decoded through gpu.host_api on the card."""
     import cblosc_tpu_torch as tb
     from cblosc_tpu_torch.core import engine
     from cblosc_tpu_torch.format import constants as C
@@ -1308,6 +1395,19 @@ def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks,
         print(f"byte api {label}: {len(data)} B <- {len(chunk)} B decoded "
               f"on {dev.type} in {td:.3f} s (host clock, first call); "
               f"decompress launches {delta}")
+    for label, data, chunk, cpu_chunk, need in ratio_chunks:
+        check(chunk == cpu_chunk, f"{label}: the card's chunk differs from "
+              "the port's device='cpu' chunk of the same buffer")
+        r, td, delta = device_decode(label, chunk, need)
+        check(r == data, f"{label}: round trip differs")
+        check(counted(lambda: tb.decompress_ctx(chunk, device=dev))[0]
+              == data, f"{label}: byte-API decode differs")
+        check(engine.decompress_chunk(chunk) == data,
+              f"{label}: host engine cannot decode the card's chunk")
+        print(f"byte api {label}: {len(data)} B -> {len(chunk)} B (ratio "
+              f"{len(data) / len(chunk):.4f}) written on {dev.type}, equal "
+              f"to the CPU's chunk; decompress {td:.3f} s (host clock, first "
+              f"call); decompress launches {delta}")
     for label, data, chunk in host_only:
         r, delta = counted(lambda: host_api.decompress_chunk(chunk, None, dev))
         check(r is None, f"{label}: the device path must decline it")
@@ -1327,29 +1427,33 @@ def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks,
 
 
 def phase_bench(dev, label, data, typesize, chunk_bytes, reps, card,
-                need=(), code=None):
+                need=(), code=None, clevel=1):
     """Device-resident bench geometry (bench.py): compress_blocks ->
     mask_past_csize -> decompress_blocks over the whole working set, with
-    codec `code` (blosclz by default). The launch counters are zeroed
-    just before the first decode and read just after it; each kernel
-    named in need must have launched."""
+    codec `code` (blosclz by default) at `clevel`'s device geometry and
+    policies. The launch counters are zeroed just before the first decode
+    and read just after it; each kernel named in need must have launched.
+    At the ratio clevels mine_group is also timed alone, on the streams
+    that the compress call mines (recorded from one call), in the same
+    groups."""
     from cblosc_tpu_torch.core import policy
     from cblosc_tpu_torch.format import constants as C
-    from cblosc_tpu_torch.gpu import kernels, pipeline
+    from cblosc_tpu_torch.gpu import codec, kernels, pipeline
 
     code = C.BLOSCLZ if code is None else code
-    bs = policy.compute_blocksize_device(1, typesize, chunk_bytes)
+    bs = policy.compute_blocksize_device(clevel, typesize, chunk_bytes)
     nsplits = policy.nsplits_encode(
         not policy.split_block(code, typesize, bs), typesize, False)
     neblock = bs // nsplits
     x = torch.from_numpy(data.reshape(-1, bs).copy()).to(dev)
     total = x.numel()
+    mine = policy.device_mine(clevel)
 
     def comp():
         return pipeline.compress_blocks(
             x, C.SHUFFLE, typesize, nsplits,
-            policy.device_min_bytes_per_iter(1), code,
-            policy.device_min_cratio_x100(1), False)
+            policy.device_min_bytes_per_iter(clevel), code,
+            policy.device_min_cratio_x100(clevel), mine)
 
     slots, cs = comp()
     rows = pipeline.mask_past_csize(slots, cs, slots.shape[1])
@@ -1372,12 +1476,23 @@ def phase_bench(dev, label, data, typesize, chunk_bytes, reps, card,
               + nchunks * (16 + 4 * (chunk_bytes // bs)))
     tc = _ms(dev, comp, reps)
     td = _ms(dev, dec, reps)
+    extra = {}
+    if mine:
+        from cblosc_tpu_torch.utils.profile import mined_inputs
+
+        seen = mined_inputs(comp)
+        check(bool(seen), f"bench {label}: compress mined nothing")
+        tm = _ms(dev, lambda: [codec.mine_group(*a) for a in seen], reps)
+        extra = {"mine_group_ms": tm, "mine_group_share": tm / tc,
+                 "mine_group_calls": len(seen),
+                 "mined_rows": sum(a[0].shape[0] for a in seen),
+                 "rows": cs.numel(), "neblock": neblock}
     print(json.dumps({
         "bench": label, "codec": C.COMPNAMES[code], "bytes": total,
-        "clevel": 1, "typesize": typesize,
+        "clevel": clevel, "typesize": typesize,
         "ratio": total / cbytes, "compress_ms": tc, "decompress_ms": td,
         "compress_gbps": total / tc / 1e6, "decompress_gbps": total / td / 1e6,
-        "decompress_launches": launches, "card": card,
+        **extra, "decompress_launches": launches, "card": card,
         "timer": "call time on the CUDA stream (events; includes host syncs)"
         if dev.type == "cuda" else "host clock (rehearsal)"}))
 
@@ -1427,6 +1542,42 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
           f"{'/'.join(str(len(zstd_chunks[(c, 'synth')])) for c in (1, 5, 9))} "
           f"B; zstd int32 arange clevel 5 {len(zstd_chunks[(5, 'int32 arange')])}"
           f" B ({time.perf_counter() - t0:.1f} s)")
+    # the ratio clevels, written on the card and by the port on the CPU:
+    # (compressor, data, typesize); the LZ4 synth chunk at clevel 5 is
+    # numcodecs' default Blosc(); the int32 arange and the uint8
+    # staircase carry mined distances (far in blosclz; abutting a static
+    # run in LZ4)
+    st = (np.arange(chunk_bytes) // 128 % 256).astype(np.uint8).tobytes()
+    ratio_src = {"blosclz synth sbits19 ts8": ("blosclz", sy, 8),
+                 "blosclz int32 arange ts4": ("blosclz", ar, 4),
+                 "lz4 synth sbits19 ts8": ("lz4", sy, 8),
+                 "lz4hc synth sbits19 ts8": ("lz4hc", sy, 8),
+                 "lz4 uint8 staircase ts1": ("lz4", st, 1)}
+    ratio_chunks, chunks5 = [], {}
+    t_card = t_cpu = 0.0
+    for clevel in (5, 9):
+        for name, (comp, d, ts) in ratio_src.items():
+            t0 = time.perf_counter()
+            card_c = tb.compress_ctx(clevel, C.SHUFFLE, ts, d,
+                                     compressor=comp, device=dev)
+            t1 = time.perf_counter()
+            cpu_c = tb.compress_ctx(clevel, C.SHUFFLE, ts, d,
+                                    compressor=comp, device="cpu")
+            t_card += t1 - t0
+            t_cpu += time.perf_counter() - t1
+            # blosclz synth decodes by the template path alone (its live
+            # rows are the PURE zero planes): no kernel launches
+            need = (() if name == "blosclz synth sbits19 ts8" else
+                    ("walk", "expand") if comp == "blosclz" else
+                    ("lz4_walk", "expand") if "staircase" in name else
+                    ("lz4_walk",))
+            ratio_chunks.append((f"{name} clevel {clevel}", d, card_c, cpu_c,
+                                 need))
+            if clevel == 5:
+                chunks5[name] = card_c
+    print(f"clevel-5/9 chunks of 4 MB: {len(ratio_chunks)} written on "
+          f"{dev.type} in {t_card:.1f} s and on the CPU in {t_cpu:.1f} s "
+          "(host clock, first calls)")
     t_run = time.perf_counter()
 
     def stamp(label):
@@ -1437,6 +1588,13 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
     stats.update(phase_codec_walks(dev, chunk_bytes, snappy_chunk, lz4_chunk,
                                    reps))
     stamp("phase 2: lz4_walk, snappy_walk held and timed")
+    for name, e in phase_ratio_rows(dev, chunks5, reps).items():
+        stats[name]["max_abs_err"] = max(
+            stats[name]["max_abs_err"],
+            *(v for k, v in e.items() if k.endswith("max_abs_err")))
+        stats[name].update(e)
+    stamp("phase 2: walk, expand and lz4_walk on the card-written clevel-5 "
+          "rows held and timed")
     for part in (phase_zlib_walk(dev, zlib_chunks[(5, "synth")], reps),
                  phase_zstd_walk(dev, zstd_chunks[(1, "synth")],
                                  zstd_chunks[(5, "synth")], reps)):
@@ -1468,7 +1626,7 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
             sy if name == "synth" else ar, c, "zstd_walk")
            for (cl, name), c in zstd_chunks.items() if cl != 9],
         [("host-engine zstd clevel-9 synth chunk", sy,
-          zstd_chunks[(9, "synth")])])
+          zstd_chunks[(9, "synth")])], ratio_chunks)
     print(json.dumps({"launches": counts}))
     stamp("phase 3: byte API")
     phase_bench(dev, "synth sbits19 ts8", synth(workset, 8, 19), 8,
@@ -1478,6 +1636,10 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
                 chunk_bytes, reps, card, need=("walk", "expand"))
     phase_bench(dev, "lz4 synth sbits19 ts8", synth(workset, 8, 19), 8,
                 chunk_bytes, reps, card, need=("lz4_walk",), code=C.LZ4)
+    for clevel in (5, 9):
+        phase_bench(dev, "synth sbits19 ts8", synth(workset, 8, 19), 8,
+                    chunk_bytes, reps, card, clevel=clevel)
+    stamp("phase 4: 128 MB round trips at clevels 5 and 9")
     phase_zlib_bench(dev, workset, chunk_bytes, reps, card)
     for clevel in (5, 1):
         stats["zstd_walk"].update(

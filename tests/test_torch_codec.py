@@ -54,12 +54,6 @@ def test_encode_stream_decodes_in_host_oracle(rng):
             assert raw == S[i].tobytes()
 
 
-def test_encode_mining_not_ported(rng):
-    S = torch.from_numpy(stream_rows(rng, 2048, 2))
-    with pytest.raises(NotImplementedError):
-        tc.encode(S, tc.DISTANCES, 120, True)
-
-
 @pytest.mark.parametrize("n", [2048, 8192])
 def test_decode_matches_jax(rng, n):
     S = stream_rows(rng, n, 7)

@@ -107,11 +107,10 @@ def test_corrupt_chunk_raises_format_error():
 
 
 def test_refuses_what_is_not_ported():
-    """Compress at clevel >= 5 (mining) is refused; an unknown codec is
-    an error; zstd, ported, round-trips with the JAX engine's chunk."""
+    """An unknown codec is an error; zstd, ported, round-trips with the
+    JAX engine's chunk. (Compress at clevel >= 5 is ported now:
+    tests/test_torch_mining.py.)"""
     data = np.arange(1 << 14, dtype=np.int32).tobytes()
-    with pytest.raises(NotImplementedError):      # mining: clevel >= 5
-        tb.compress_ctx(5, C.SHUFFLE, 4, data, device="cpu")
     with pytest.raises(ValueError):
         tb.compress_ctx(1, C.SHUFFLE, 4, data, compressor="nope", device="cpu")
     zstd = jeng.compress_chunk(jeng.build_context(

@@ -110,8 +110,6 @@ def test_encode_matches_jax(rng, N, min_cratio):
         if got[1][i] < n:
             assert jhost.decompress(got[0][i, :got[1][i]].tobytes(), n) == \
                 S[i].tobytes()
-    with pytest.raises(NotImplementedError):
-        tl.encode(torch.from_numpy(S), tl.codec.DISTANCES, min_cratio, True)
 
 
 def test_walk_and_decode_match_jax_on_host_rows(rng):
