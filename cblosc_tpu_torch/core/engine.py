@@ -5,8 +5,10 @@ engine runs what the device path hands to the host, exactly where the
 JAX package's device bridge does: the leftover block (different
 geometry, blosc.c:627-633), buffers with no full block, memcpyed chunks
 (clevel 0 or tiny buffers), and chunk decoding when the device path
-declines. Its codecs are the numpy oracles of blosclz, LZ4/LZ4HC and
-snappy, CPython's built-in zlib and libzstd through ctypes (ops/codecs/).
+declines, and ``getitem``'s blocks where the device path declines. Its
+codecs come from the registry (models/registry.py): the numpy oracles
+of blosclz, LZ4/LZ4HC and snappy, CPython's built-in zlib and libzstd
+through ctypes (ops/codecs/).
 
 A frozen `CompressionContext` carries all per-job state; blocks are laid
 out in block order (deterministic, like the device's exclusive scan).
@@ -21,8 +23,8 @@ import numpy as np
 
 from ..format import constants as C
 from ..format.header import ChunkHeader, FormatError, make_flags, read_bstarts, validate_header
+from ..models import registry
 from ..ops import filters_np
-from ..ops.codecs import blosclz, lz4, snappy, zlib_, zstd_
 from . import policy
 
 
@@ -45,37 +47,7 @@ class CompressionContext:
     dont_split: bool
     flags: int
     versionlz: int
-
-
-def _codec(compcode: int):
-    """(compress, decompress) over one split stream, as the JAX package's
-    codec registry wraps them (models/registry.py). zstd raises where no
-    libzstd is installed, where the JAX registry reports it unavailable."""
-    if compcode == C.BLOSCLZ:
-        return (lambda data, maxout, clevel, split:
-                blosclz.compress(clevel, data, maxout, split),
-                blosclz.decompress)
-    if compcode == C.LZ4:
-        return (lambda data, maxout, clevel, split:
-                lz4.compress(data, maxout, policy.get_accel(C.LZ4, clevel)),
-                lz4.decompress)
-    if compcode == C.LZ4HC:
-        return (lambda data, maxout, clevel, split:
-                lz4.compress_hc(data, maxout, clevel),
-                lz4.decompress)
-    if compcode == C.SNAPPY:
-        return (lambda data, maxout, clevel, split:
-                snappy.compress(data, maxout),
-                snappy.decompress)
-    if compcode == C.ZLIB:
-        return (lambda data, maxout, clevel, split:
-                zlib_.compress(data, maxout, clevel),
-                zlib_.decompress)
-    if compcode == C.ZSTD:
-        return (lambda data, maxout, clevel, split:
-                zstd_.compress(data, maxout, clevel),
-                zstd_.decompress)
-    raise ValueError(f"unknown compressor code {compcode}")
+    nthreads: int = 1     # stored as the JAX package stores it; unused here
 
 
 def build_context(
@@ -87,6 +59,7 @@ def build_context(
     compcode: int,
     forced_blocksize: int = 0,
     splitmode: int = C.FORWARD_COMPAT_SPLIT,
+    nthreads: int = 1,
     exact_blocksize: int = 0,
 ) -> CompressionContext:
     """Validate arguments and fix the chunk geometry
@@ -129,7 +102,7 @@ def build_context(
         destsize=destsize, compcode=compcode, blocksize=blocksize,
         nblocks=nblocks, leftover=leftover, splitmode=splitmode,
         memcpyed=memcpyed, dont_split=dont_split, flags=flags,
-        versionlz=versionlz,
+        versionlz=versionlz, nthreads=nthreads,
     )
 
 
@@ -149,7 +122,7 @@ def compress_block(ctx: CompressionContext, src: np.ndarray, j: int) -> bytes | 
 
     filtered = filters_np.apply_filter(ctx.doshuffle, ctx.typesize, block)
 
-    compress, _ = _codec(ctx.compcode)
+    codec = registry.get(ctx.compcode)
     nsplits = policy.nsplits_encode(ctx.dont_split, ctx.typesize, leftoverblock)
     neblock = bsize // nsplits
     # worst-case per-block budget: every split stored raw plus its length
@@ -165,7 +138,7 @@ def compress_block(ctx: CompressionContext, src: np.ndarray, j: int) -> bytes | 
             if maxout <= 0:
                 return None
         stream = filtered[s * neblock:(s + 1) * neblock]
-        cdata = compress(stream, maxout, ctx.clevel, not ctx.dont_split)
+        cdata = codec.compress(stream, maxout, ctx.clevel, not ctx.dont_split)
         cbytes = len(cdata)
         if cbytes == 0 or cbytes == neblock:
             # Incompressible split: store raw (blosc.c:705-714).
@@ -236,7 +209,7 @@ def decompress_block(
     leftoverblock: bool,
 ) -> np.ndarray:
     """Decode + unfilter one block (role of blosc_d, blosc.c:725-800)."""
-    _, decompress = _codec(hdr.compcode)
+    codec = registry.get(hdr.compcode)
     nsplits = policy.nsplits_decode(
         hdr.dont_split, hdr.typesize, hdr.blocksize, leftoverblock
     )
@@ -256,7 +229,7 @@ def decompress_block(
             out[s * neblock:(s + 1) * neblock] = stream
         else:
             try:
-                raw = decompress(stream, neblock)
+                raw = codec.decompress(stream, neblock)
             except ValueError as e:
                 raise FormatError(str(e))
             if len(raw) != neblock:
@@ -296,3 +269,54 @@ def decompress_chunk(chunk_bytes, destsize: int | None = None) -> bytes:
         for j in range(nblocks)
     ]
     return b"".join(p.tobytes() for p in parts)
+
+
+def getitem(chunk_bytes, start: int, nitems: int) -> bytes:
+    """Partial decompression: items [start, start+nitems)
+    (blosc_getitem, blosc.c:1574-1703). Only the blocks that overlap the
+    range are decoded; this is what makes a chunk a random-access
+    container."""
+    chunk = np.frombuffer(bytes(chunk_bytes), dtype=np.uint8)
+    hdr = ChunkHeader.decode(chunk_bytes)
+    if hdr.version != C.VERSION_FORMAT:
+        raise FormatError("chunk format version not supported")
+    if hdr.nbytes == 0:
+        if start == 0 and nitems == 0:
+            return b""
+        raise IndexError("getitem range out of bounds")
+    if (
+        hdr.blocksize <= 0 or hdr.blocksize > hdr.nbytes
+        or hdr.blocksize > C.MAX_BLOCKSIZE
+        or hdr.typesize <= 0 or hdr.typesize > C.MAX_TYPESIZE
+    ):
+        raise FormatError("header geometry out of range")
+    stop = start + nitems
+    ts = hdr.typesize
+    if start < 0 or start * ts > hdr.nbytes:
+        raise IndexError("`start` out of bounds")
+    if stop < 0 or stop * ts > hdr.nbytes:
+        raise IndexError("`start` + `nitems` out of bounds")
+
+    if hdr.memcpyed:
+        if hdr.nbytes + C.MAX_OVERHEAD != hdr.cbytes:
+            raise FormatError("memcpyed chunk with inconsistent sizes")
+        return chunk[16 + start * ts:16 + stop * ts].tobytes()
+
+    nblocks, leftover = hdr.nblocks, hdr.leftover
+    bstarts = read_bstarts(chunk_bytes, nblocks)
+    out = bytearray()
+    for j in range(nblocks):
+        bsize = hdr.blocksize
+        leftoverblock = False
+        if j == nblocks - 1 and leftover:
+            bsize = leftover
+            leftoverblock = True
+        startb = start * ts - j * hdr.blocksize
+        stopb = stop * ts - j * hdr.blocksize
+        if startb >= hdr.blocksize or stopb <= 0:
+            continue
+        startb = max(startb, 0)
+        stopb = min(stopb, hdr.blocksize)
+        block = decompress_block(hdr, chunk, bstarts[j], bsize, leftoverblock)
+        out += block[startb:stopb].tobytes()
+    return bytes(out)

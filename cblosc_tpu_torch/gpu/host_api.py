@@ -6,17 +6,18 @@ blosc.c:627-633) runs through the host engine; the result is
 byte-for-byte the chunk the JAX package writes, a conforming chunk
 (README_CHUNK_FORMAT.rst) any reader decodes.
 
-``compress_chunk`` and ``decompress_chunk`` return None, and the byte
-API takes the host engine, exactly where the JAX bridge does: memcpyed
-chunks, no full block, a blocksize that is not a multiple of the split
-count, a codec without a device encoder (snappy and zlib compress on
-the host), and LZ4, snappy, zlib or zstd chunks whose streams the
-device walk rejects even with the escalated budget (foreign geometry;
-for zlib also stored blocks and preset dictionaries; for zstd blocks
-above 512 KB, decode_cap). One more case goes to the host here: LZ4
-splits wider than the device encoder's int32 sort keys allow (about 2
-MiB, only with a forced blocksize), which the JAX encoder would write
-corrupt (gpu/pipeline.encoder decides). Nothing goes to the host because
+``compress_chunk``, ``decompress_chunk`` and ``getitem`` return None,
+and the byte API takes the host engine, exactly where the JAX bridge
+does: memcpyed chunks, no full block (for ``getitem``: no full block in
+the range), a blocksize that is not a multiple of the split count, a
+codec without a device encoder (snappy and zlib compress on the host),
+and LZ4, snappy, zlib or zstd chunks whose streams the device walk
+rejects even with the escalated budget (foreign geometry; for zlib also
+stored blocks and preset dictionaries; for zstd blocks above 512 KB,
+decode_cap). One more case goes to the host here: LZ4 splits wider than
+the device encoder's int32 sort keys allow (about 2 MiB, only with a
+forced blocksize), which the JAX encoder would write corrupt
+(gpu/pipeline.encoder decides). Nothing goes to the host because
 a card or a kernel is missing.
 """
 
@@ -53,7 +54,7 @@ def compress_chunk(ctx, data: bytes, device: torch.device) -> bytes | None:
             ctx = engine.build_context(
                 ctx.clevel, ctx.doshuffle, ctx.typesize, ctx.nbytes,
                 ctx.destsize, ctx.compcode, splitmode=ctx.splitmode,
-                exact_blocksize=dev_bs,
+                nthreads=ctx.nthreads, exact_blocksize=dev_bs,
             )
     nfull = ctx.nbytes // ctx.blocksize
     if nfull == 0:
@@ -162,11 +163,47 @@ def _split_table(chunk: np.ndarray, bstarts, nsplits: int):
     return offs.reshape(-1), csizes.reshape(-1)
 
 
+def _doshuffle(hdr: ChunkHeader) -> int:
+    return C.SHUFFLE if hdr.doshuffle else (
+        C.BITSHUFFLE if hdr.dobitshuffle else C.NOSHUFFLE)
+
+
+def _decode_blocks(chunk: np.ndarray, hdr: ChunkHeader, bstarts, b0: int,
+                   b1: int, nsplits: int, device: torch.device,
+                   what: str) -> np.ndarray | None:
+    """Decode the full blocks [b0, b1) of a chunk on the device: gather
+    their split streams, mask past each csize, decode and unfilter, with
+    one wider-budget retry where a row errs. Returns their bytes
+    ((b1 - b0) * blocksize), or None where a non-blosclz chunk still
+    errs (foreign geometry: the host engine decodes it); a blosclz chunk
+    that still errs is corrupt."""
+    from . import pipeline
+
+    neblock = hdr.blocksize // nsplits
+    offs, csizes = _split_table(chunk, bstarts[b0:b1], nsplits)
+    width = pipeline.decode_slot_width(neblock, hdr.compcode)
+    chunk_dev = torch.from_numpy(chunk.copy()).to(device)
+    cs_dev = torch.from_numpy(csizes).to(device)
+    rows = pipeline.gather_slots(chunk_dev, torch.from_numpy(offs).to(device),
+                                 width)
+    rows = pipeline.mask_past_csize(rows, cs_dev, width)
+    args = (rows, cs_dev, neblock, _doshuffle(hdr), hdr.typesize, nsplits,
+            hdr.compcode)
+    blocks, err = pipeline.decompress_blocks(*args)
+    if bool(err.any()):
+        hi = _escalated_budget(neblock, hdr.compcode)
+        if hi:      # token- or event-dense streams: one wider-budget retry
+            blocks, err = pipeline.decompress_blocks(*args, hi)
+        if bool(err.any()):
+            if hdr.compcode != C.BLOSCLZ:
+                return None  # foreign geometry: the host engine decodes it
+            raise FormatError(f"corrupt blosclz stream (device {what})")
+    return blocks.cpu().numpy().reshape(-1)
+
+
 def decompress_chunk(chunk_bytes, destsize: int | None,
                      device: torch.device) -> bytes | None:
     """Decompress via the device pipeline; None for the host engine."""
-    from . import pipeline
-
     chunk = np.frombuffer(bytes(chunk_bytes), dtype=np.uint8)
     hdr = ChunkHeader.decode(chunk_bytes)
     if destsize is None:
@@ -185,38 +222,63 @@ def decompress_chunk(chunk_bytes, destsize: int | None,
     )
     if hdr.blocksize % nsplits:
         return None
-    neblock = hdr.blocksize // nsplits
 
     bstarts = read_bstarts(chunk_bytes, nblocks)
-    offs, csizes = _split_table(chunk, bstarts[:nfull], nsplits)
-
-    width = pipeline.decode_slot_width(neblock, hdr.compcode)
-    chunk_dev = torch.from_numpy(chunk.copy()).to(device)
-    cs_dev = torch.from_numpy(csizes).to(device)
-    rows = pipeline.gather_slots(chunk_dev, torch.from_numpy(offs).to(device),
-                                 width)
-    rows = pipeline.mask_past_csize(rows, cs_dev, width)
-    doshuffle = (
-        C.SHUFFLE if hdr.doshuffle else (C.BITSHUFFLE if hdr.dobitshuffle else 0)
-    )
-    blocks, err = pipeline.decompress_blocks(
-        rows, cs_dev, neblock, doshuffle, hdr.typesize, nsplits, hdr.compcode,
-    )
-    if bool(err.any()):
-        hi = _escalated_budget(neblock, hdr.compcode)
-        if hi:      # token- or event-dense streams: one wider-budget retry
-            blocks, err = pipeline.decompress_blocks(
-                rows, cs_dev, neblock, doshuffle, hdr.typesize, nsplits,
-                hdr.compcode, hi)
-        if bool(err.any()):
-            if hdr.compcode != C.BLOSCLZ:
-                return None  # foreign geometry: the host engine decodes it
-            raise FormatError("corrupt blosclz stream (device decode)")
-    out = blocks.cpu().numpy().reshape(-1)
-
+    out = _decode_blocks(chunk, hdr, bstarts, 0, nfull, nsplits, device,
+                         "decode")
+    if out is None:
+        return None
     if leftover:
         tail = engine.decompress_block(
             hdr, chunk, bstarts[nfull], leftover, leftoverblock=True
         )
         return out.tobytes() + tail.tobytes()
     return out.tobytes()
+
+
+def getitem(chunk_bytes, start: int, nitems: int,
+            device: torch.device) -> bytes | None:
+    """Partial decompression on the device (blosc_getitem,
+    blosc.c:1574-1703): only the full blocks that overlap items
+    [start, start+nitems) are decoded, the leftover block on the host
+    engine. Returns None, and the caller takes the host engine, where
+    the JAX bridge does: memcpyed chunks, a codec without a device
+    decoder, nbytes 0, a range that touches no full block, a blocksize
+    that is not a multiple of the split count, and a non-blosclz chunk
+    that still errs after the escalated budget."""
+    from . import pipeline
+
+    chunk = np.frombuffer(bytes(chunk_bytes), dtype=np.uint8)
+    hdr = ChunkHeader.decode(chunk_bytes)
+    if (hdr.memcpyed or hdr.compcode not in pipeline.DEVICE_DECODE_CODECS
+            or hdr.nbytes == 0):
+        return None
+    ts = hdr.typesize
+    stop = start + nitems
+    if start < 0 or stop * ts > hdr.nbytes or nitems < 0:
+        raise IndexError("getitem range out of bounds")
+    b0 = (start * ts) // hdr.blocksize
+    b1 = min((stop * ts + hdr.blocksize - 1) // hdr.blocksize, hdr.nblocks)
+    nfull = hdr.nblocks - (1 if hdr.leftover else 0)
+    b1_dev = min(b1, nfull)
+    if b1_dev <= b0:
+        return None                 # only the leftover block: host engine
+    nsplits = policy.nsplits_decode(
+        hdr.dont_split, hdr.typesize, hdr.blocksize, False
+    )
+    if hdr.blocksize % nsplits:
+        return None
+
+    bstarts = read_bstarts(chunk_bytes, hdr.nblocks)
+    out = _decode_blocks(chunk, hdr, bstarts, b0, b1_dev, nsplits, device,
+                         "getitem")
+    if out is None:
+        return None
+    if b1 > b1_dev:                 # the leftover block overlaps the range
+        tail = engine.decompress_block(
+            hdr, chunk, bstarts[nfull], hdr.leftover, leftoverblock=True
+        )
+        out = np.concatenate([out, tail])
+    lo = start * ts - b0 * hdr.blocksize
+    hi = stop * ts - b0 * hdr.blocksize
+    return out[lo:hi].tobytes()

@@ -86,6 +86,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      each decode and read just after it, the phase's launches are their
      sum, and each kernel must have launched; then the
      clevel-9 chunk's decode is timed warm (CUDA events, median of 5);
+     then getitem (api.getitem and gpu.host_api.getitem) on the card on
+     the main-path 4 MB blosclz clevel-1 synth chunk, the card-written
+     LZ4 clevel-5 synth chunk (numcodecs' default), the host engine's
+     zstd clevel-5 synth chunk and a 4 MB + 1234 B synth buffer with a
+     leftover block, each over five ranges (the first 100 items, 100
+     items across a block boundary, the last full block into the
+     leftover, an empty range, the whole chunk): every result equal to
+     the input and to the port's device="cpu" getitem (the zstd chunk's
+     on its one-block range; its others against the host engine's), the
+     rows handed to the decoder exactly those of the range's blocks, the
+     codec's walk launched by a one-block range, and the card time of a
+     one-block getitem beside the whole decompress_ctx of each chunk;
   4. the bench geometry on device-resident data: a 128 MB working set
      through gpu.pipeline.compress_blocks -> mask_past_csize ->
      decompress_blocks, verified equal, timed with CUDA events (call
@@ -106,7 +118,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      walk rejects even at the escalated one (the byte API would send
      them to the host), and the zstd walk timed alone in one launch over
      all their live rows;
-  5. the kernels line, then the device line, last.
+  5. the sharded engine (cblosc_tpu_torch.parallel) on a one-rank NCCL
+     process group on the card over a FileStore in a temporary
+     directory: make_mesh, compress_chunk/decompress_chunk,
+     training_step, and training_step_2d on make_mesh_2d(1), on 4 MB of
+     synth (and compress_chunk/decompress_chunk on 4 MB of int32 arange,
+     whose decode launches walk and expand), each chunk and total equal
+     to the same calls on a one-rank gloo group on the CPU, with the
+     call times; the machine has one
+     card, so no multi-GPU scaling is measured; both groups are
+     destroyed before the last line;
+  6. the kernels line (launches: phases 3 and 5), then the device line,
+     last.
 
 It imports nothing of JAX and nothing of the JAX package, and exits
 non-zero without a result when CUDA is unavailable or the package is
@@ -1426,6 +1449,234 @@ def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks,
     return totals
 
 
+def phase_getitem(dev, cases, reps):
+    """getitem through the entry points a user calls (api.getitem and
+    gpu.host_api.getitem), on the card. cases: [(label, data, chunk,
+    kernels a one-block range must launch, held on the CPU on every
+    range)]. Ranges: the first 100 items, 100 items across the first
+    block boundary, from the last full block to the end (into the
+    leftover where there is one), an empty range at a block boundary,
+    the whole chunk. Each result equals the input slice and the port's
+    device="cpu" getitem (on the zstd chunk, whose plain walk takes
+    seconds a row on the host, only on the one-block range; its other
+    ranges against the host engine's getitem too); where gpu.host_api
+    declines, the range touches no full block. The rows handed to the
+    decoder are recorded: a range decodes its blocks' splits and no
+    others. Launch counters are zeroed just before each range's two
+    calls and read just after; the phase's launches are their sum.
+    Then the card time of a one-block getitem beside the full
+    decompress_ctx of the same chunk (CUDA events, median of reps)."""
+    import cblosc_tpu_torch as tb
+    from cblosc_tpu_torch.core import engine, policy
+    from cblosc_tpu_torch.format.header import ChunkHeader
+    from cblosc_tpu_torch.gpu import host_api, kernels, pipeline
+
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    rows_seen = []
+    decode = pipeline.decompress_blocks
+
+    def recording(slots, *a, **k):
+        rows_seen.append(slots.shape[0])
+        return decode(slots, *a, **k)
+
+    pipeline.decompress_blocks = recording
+    try:
+        for label, data, chunk, need, cpu_all in cases:
+            hdr = ChunkHeader.decode(chunk)
+            ts, bs, n = hdr.typesize, hdr.blocksize, hdr.nbytes
+            items, nfull = n // ts, n // bs
+            nsplits = policy.nsplits_decode(hdr.dont_split, ts, bs, False)
+            check(nfull >= 2, f"getitem {label}: {nfull} full blocks, the "
+                  "ranges need two")
+            tail = nfull * bs // ts - 30 if hdr.leftover else \
+                (nfull - 1) * bs // ts + 7
+            ranges = [("first 100 items", 0, 100),
+                      ("100 items across a block boundary", bs // ts - 50, 100),
+                      ("last full block into the leftover" if hdr.leftover
+                       else "last full block", tail, items - tail),
+                      ("empty range", bs // ts, 0),
+                      ("whole chunk", 0, items)]
+            for what, start, nitems in ranges:
+                want = data[start * ts:(start + nitems) * ts]
+                b0 = start * ts // bs
+                b_end = min(-(-(start + nitems) * ts // bs), hdr.nblocks)
+                b1 = min(b_end, nfull)          # the full blocks decoded
+                kernels.reset_launches()
+                rows_seen.clear()
+                t0 = time.perf_counter()
+                dev_out = host_api.getitem(chunk, start, nitems, dev)
+                t1 = time.perf_counter()
+                rows = list(rows_seen)
+                api = tb.getitem(chunk, start, nitems, device=dev)
+                delta = dict(kernels.LAUNCHES)
+                for k, v in delta.items():
+                    totals[k] += v
+                check(api == want, f"getitem {label}, {what}: differs from "
+                      "the input")
+                if b1 <= b0:
+                    check(dev_out is None and not rows, f"getitem {label}, "
+                          f"{what}: the device path must decline it")
+                else:
+                    check(dev_out == want, f"getitem {label}, {what}: the "
+                          "device path declined or differs")
+                    check(rows and set(rows) == {(b1 - b0) * nsplits},
+                          f"getitem {label}, {what}: decoded rows {rows}, "
+                          f"not the {(b1 - b0) * nsplits} of blocks "
+                          f"{b0}..{b1 - 1}")
+                on_cpu = cpu_all or what == "first 100 items"
+                if on_cpu:
+                    check(tb.getitem(chunk, start, nitems, device="cpu")
+                          == api, f"getitem {label}, {what}: differs from "
+                          "the device='cpu' getitem")
+                else:
+                    check(engine.getitem(chunk, start, nitems) == api,
+                          f"getitem {label}, {what}: differs from the host "
+                          "engine's getitem")
+                if dev.type == "cuda" and b1 - b0 == 1:
+                    for name in need:
+                        check(delta[name] > 0, f"getitem {label}, {what}: "
+                              f"did not launch {name}")
+                print(f"getitem {label}, {what} (items {start}..{start + nitems}"
+                      f", blocks {b0}..{max(b_end, b0 + 1) - 1} of {hdr.nblocks}): "
+                      f"rows decoded {rows[0] if rows else 0} of "
+                      f"{nfull * nsplits}; equal to the input and the "
+                      f"{'device=cpu' if on_cpu else 'host engine'} getitem; "
+                      f"device layer {t1 - t0:.3f} s (host clock, first call); "
+                      f"launches {delta}")
+            one = _ms(dev, lambda: tb.getitem(chunk, 0, 100, device=dev), reps)
+            full = _ms(dev, lambda: tb.decompress_ctx(chunk, device=dev), reps)
+            print(json.dumps({"getitem": label, "nbytes": n, "blocksize": bs,
+                              "one_block_getitem_ms": one,
+                              "decompress_ctx_ms": full,
+                              "timer": "CUDA events, median of "
+                              f"{reps}, host work included"
+                              if dev.type == "cuda" else "host clock"}))
+    finally:
+        pipeline.decompress_blocks = decode
+    return totals
+
+
+def phase_sharded(dev, data, arange, reps):
+    """The sharded engine (cblosc_tpu_torch.parallel) on a one-rank
+    process group: NCCL on the card (gloo in a CPU rehearsal) over a
+    FileStore in a temporary directory, then the same calls on a
+    one-rank gloo group on the CPU, to which every chunk and total must
+    be equal. make_mesh, compress_chunk/decompress_chunk, training_step,
+    and training_step_2d on make_mesh_2d(1), on data (4 MB of synth,
+    whose decode is template work); compress_chunk/decompress_chunk
+    also on an int32 arange, whose decode must launch walk and expand.
+    The machine has one card, so no multi-GPU scaling is measured.
+    Launch counters are zeroed just before each card call and read just
+    after; returns the sum. A failed init or collective fails the run:
+    there is no retry on another backend."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from cblosc_tpu_torch import parallel
+    from cblosc_tpu_torch.core import policy
+    from cblosc_tpu_torch.format import constants as C
+    from cblosc_tpu_torch.gpu import kernels
+
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    bs = policy.compute_blocksize_device(1, 8, len(data))
+    nsplits = policy.nsplits_encode(False, 8, False)
+    nblocks = len(data) // bs
+    blocks = np.frombuffer(data, np.uint8)[:nblocks * bs].reshape(
+        nblocks, bs).copy()
+
+    def calls(mdev, count):
+        mesh = parallel.make_mesh()
+        mesh2 = parallel.make_mesh_2d(1)
+        x = torch.from_numpy(blocks.copy()).to(mdev)
+        out = {}
+
+        def one(name, fn):
+            if count:
+                kernels.reset_launches()
+            r = fn()
+            if count:
+                for k, v in kernels.LAUNCHES.items():
+                    totals[k] += v
+            out[name] = r
+            return r
+
+        c = one("compress_chunk", lambda: parallel.compress_chunk(
+            1, C.SHUFFLE, 8, data, mesh))
+        one("decompress_chunk", lambda: parallel.decompress_chunk(c, mesh))
+        ca = one("compress_chunk_arange", lambda: parallel.compress_chunk(
+            1, C.SHUFFLE, 4, arange, mesh))
+        before = dict(totals)
+        one("decompress_chunk_arange",
+            lambda: parallel.decompress_chunk(ca, mesh))
+        if count and mdev.type == "cuda":
+            for name in ("walk", "expand"):
+                check(totals[name] > before[name], "sharded decompress_chunk "
+                      f"of the int32 arange did not launch {name}")
+        one("training_step", lambda: parallel.training_step(
+            x, C.SHUFFLE, 8, nsplits, mesh))
+        one("training_step_2d", lambda: parallel.training_step_2d(
+            x, C.SHUFFLE, 8, nsplits, mesh2))
+        ms = {}
+        if count:
+            ms = {"compress_chunk_ms": _ms(mdev, lambda: parallel.compress_chunk(
+                      1, C.SHUFFLE, 8, data, mesh), reps),
+                  "decompress_chunk_ms": _ms(
+                      mdev, lambda: parallel.decompress_chunk(c, mesh), reps),
+                  "training_step_ms": _ms(mdev, lambda: parallel.training_step(
+                      x, C.SHUFFLE, 8, nsplits, mesh), reps),
+                  "training_step_2d_ms": _ms(
+                      mdev, lambda: parallel.training_step_2d(
+                          x, C.SHUFFLE, 8, nsplits, mesh2), reps)}
+        return out, ms, dict(zip(mesh2.mesh_dim_names, mesh2.mesh.shape))
+
+    def group(backend, store, fn):
+        dist.init_process_group(
+            backend, store=dist.FileStore(store, 1), rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=120))
+        try:
+            return fn()
+        finally:
+            dist.destroy_process_group()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        card, ms, shape2 = group(backend, f"{tmp}/card",
+                                 lambda: calls(dev, True))
+        host, _, _ = group("gloo", f"{tmp}/cpu",
+                           lambda: calls(torch.device("cpu"), False))
+    for sfx, src in (("", data), ("_arange", arange)):
+        check(card["compress_chunk" + sfx] == host["compress_chunk" + sfx],
+              f"sharded compress_chunk{sfx}: the card's chunk differs from "
+              "gloo's")
+        check(card["decompress_chunk" + sfx] == src
+              and host["decompress_chunk" + sfx] == src,
+              f"sharded decompress_chunk{sfx} differs from the input")
+    for name in ("training_step", "training_step_2d"):
+        (co, ce, ct), (ho, he, ht) = card[name], host[name]
+        check(torch.equal(co.cpu(), torch.from_numpy(blocks))
+              and torch.equal(ho, torch.from_numpy(blocks)),
+              f"sharded {name}: round trip differs")
+        check(not bool(ce.any()) and not bool(he.any()),
+              f"sharded {name}: decode reported err")
+        check(int(ct) == int(ht), f"sharded {name}: total {int(ct)} on the "
+              f"card, {int(ht)} on gloo")
+    print(json.dumps({
+        "sharded": f"{backend} one rank", "bytes": len(data),
+        "blocksize": bs, "chunk_bytes": len(card["compress_chunk"]),
+        "arange_chunk_bytes": len(card["compress_chunk_arange"]),
+        "total": int(card["training_step"][2]), "mesh_2d": shape2,
+        "equal_to_gloo": True, **ms, "launches": totals,
+        "timer": "CUDA events, median of "
+        f"{reps}, host work and collectives included"
+        if dev.type == "cuda" else "host clock"}))
+    print(f"sharded engine: this machine has {torch.cuda.device_count()} "
+          "card(s) on one host, so it runs one rank; no multi-GPU scaling "
+          "is measured")
+    return totals
+
+
 def phase_bench(dev, label, data, typesize, chunk_bytes, reps, card,
                 need=(), code=None, clevel=1):
     """Device-resident bench geometry (bench.py): compress_blocks ->
@@ -1629,6 +1880,21 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
           zstd_chunks[(9, "synth")])], ratio_chunks)
     print(json.dumps({"launches": counts}))
     stamp("phase 3: byte API")
+    # getitem: the main-path blosclz chunk, the card's LZ4 clevel-5 chunk
+    # (numcodecs' default), the host engine's zstd clevel-5 chunk, and a
+    # buffer with a leftover block
+    left = synth(chunk_bytes + 1240, 8, 19)[:chunk_bytes + 1234].tobytes()
+    gi = phase_getitem(dev, [
+        ("blosclz clevel-1 synth chunk", sy,
+         tb.compress_ctx(1, C.SHUFFLE, 8, sy, device=dev), (), True),
+        ("card-written lz4 clevel-5 synth chunk", sy,
+         chunks5["lz4 synth sbits19 ts8"], ("lz4_walk",), True),
+        ("host-engine zstd clevel-5 synth chunk", sy,
+         zstd_chunks[(5, "synth")], ("zstd_walk", "expand"), False),
+        ("blosclz clevel-1 synth chunk of 4 MB + 1234 B", left,
+         tb.compress_ctx(1, C.SHUFFLE, 8, left, device=dev), (), True)], reps)
+    print(json.dumps({"getitem_launches": gi}))
+    stamp("phase 3: getitem")
     phase_bench(dev, "synth sbits19 ts8", synth(workset, 8, 19), 8,
                 chunk_bytes, reps, card)
     phase_bench(dev, "int32 arange ts4",
@@ -1645,6 +1911,9 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
         stats["zstd_walk"].update(
             phase_zstd_bench(dev, workset, chunk_bytes, reps, card, clevel))
     stamp("phase 4: 128 MB round trips and the 128 MB zlib and zstd decodes")
+    sharded = phase_sharded(dev, sy, ar, reps)
+    stamp("phase 5: the sharded engine on a one-rank group")
+    counts = {k: counts[k] + gi[k] + sharded[k] for k in counts}
 
     src = {"expand": ("cblosc_tpu_torch/csrc/expand.cu",
                       "cblosc_tpu/tpu/expand.py:258"),

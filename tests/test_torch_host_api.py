@@ -140,6 +140,8 @@ def test_port_imports_no_jax():
         d = np.arange(1 << 15, dtype=np.int32).tobytes()
         c = tb.compress_ctx(1, tb.SHUFFLE, 4, d, device="cpu")
         assert tb.decompress_ctx(c, device="cpu") == d
+        assert tb.getitem(c, 8000, 300, device="cpu") == d[32000:33200]
+        import cblosc_tpu_torch.parallel
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "cblosc_tpu."))
                or m == "cblosc_tpu"]
