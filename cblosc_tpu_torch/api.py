@@ -14,9 +14,11 @@ Every call runs the device pipeline on ``device`` (default ``cuda``;
 host engine only where the device bridge declines (memcpyed chunks, no
 full block, codecs the device does not encode), as the JAX package's
 ``backend="tpu"`` path does; ``device`` stands where the JAX calls take
-``backend``. ``compress`` returns b"" when the data is incompressible
-and does not fit ``destsize`` (the reference's return-0 contract,
-blosc.h:167-169).
+``backend``. The host engine is core/backend.py's router: the native C++
+engine (native/, built with g++ on first use), then the numpy engine
+where the native one lacks a codec. ``compress`` returns b"" when the
+data is incompressible and does not fit ``destsize`` (the reference's
+return-0 contract, blosc.h:167-169).
 
 Codecs: blosclz, lz4 and lz4hc compress and decompress on the device
 at every clevel (the ratio clevels >= 5 mine per-row adaptive match
@@ -26,8 +28,9 @@ the host engine, as in the JAX package). ``getitem`` decodes only the
 blocks that overlap the range.
 
 The thread counts (``set_nthreads``, ``numinternalthreads``,
-``BLOSC_NTHREADS``) are checked and stored as in the JAX package; the
-device path does not use them.
+``BLOSC_NTHREADS``) are checked and stored as in the JAX package and
+size the native engine's worker pool for the chunks the host engine
+compresses and decompresses; the device path does not use them.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import numpy as np
 import torch
 
 from . import device as device_mod
-from .core import engine
+from .core import backend, engine
 from .format import constants as C
 from .format.header import (
     FormatError,
@@ -89,9 +92,12 @@ def _after_fork_in_child() -> None:
     """Fork safety (cf. the pthread_atfork handler, blosc.c:2210-2244):
     a child starts from fresh state and a new lock, and runs torch's CPU
     ops on its own thread, since the parent's intra-op worker threads do
-    not exist in it (an op that waits for them would hang)."""
+    not exist in it (an op that waits for them would hang); for the same
+    reason the native engine's pool drops the parent's workers and
+    starts new ones on its next call."""
     _state.__init__()
     torch.set_num_threads(1)
+    backend.after_fork_in_child()
 
 
 if hasattr(os, "register_at_fork"):
@@ -113,20 +119,22 @@ def destroy() -> None:
 
 def free_resources() -> None:
     """Drop what the port caches between calls (blosc_free_resources,
-    blosc.c:2311-2316): the LZ4 walk's look-back scratch on the device
-    and the template decoder's tables. Kernels already loaded stay."""
+    blosc.c:2311-2316): the LZ4 walk's look-back scratch on the device,
+    the template decoder's tables and the native engine's worker pool
+    (JAX: core/backend.py:92-96). Kernels already loaded stay."""
     from .gpu import codec_lz4, structured
 
     codec_lz4._lookback.clear()
     structured._template_table.cache_clear()
+    backend.free_resources()
 
 
 # --- configuration ----------------------------------------------------------
 
 def set_nthreads(n: int) -> int:
     """Set the thread count; returns the previous value
-    (blosc_set_nthreads, blosc.c:1958-1973). Stored only: the device
-    path does not use it."""
+    (blosc_set_nthreads, blosc.c:1958-1973). The global API hands it to
+    the native engine's pool; the device path does not use it."""
     if n <= 0 or n > C.MAX_THREADS:
         raise ValueError(f"nthreads must be in 1..{C.MAX_THREADS}")
     with _state.lock:
@@ -303,8 +311,8 @@ def compress_ctx(
     Returns the serialized chunk, or b"" when the data does not fit
     ``destsize``. splitmode is one of ALWAYS_SPLIT, NEVER_SPLIT,
     AUTO_SPLIT and FORWARD_COMPAT_SPLIT (the default).
-    numinternalthreads is stored in the context, as in the JAX package;
-    the device path does not use it."""
+    numinternalthreads sizes the native engine's pool where the host
+    engine writes the chunk; the device path does not use it."""
     dev = device_mod.resolve(device)
     data = _coerce_src(src)
     nbytes = len(data)
@@ -318,7 +326,7 @@ def compress_ctx(
     )
     out = host_api.compress_chunk(ctx, data, dev)
     if out is None:
-        out = engine.compress_chunk(ctx, data)
+        out = backend.compress_chunk(ctx, data)
     _warn(out, nbytes, clevel)
     return out
 
@@ -358,12 +366,13 @@ def compress(clevel: int, doshuffle: int, typesize: int, src,
 def decompress_ctx(src, destsize: int | None = None,
                    numinternalthreads: int = 1, device=None) -> bytes:
     """Stateless decompression (blosc_decompress_ctx, blosc.h:304-330).
-    numinternalthreads is not used by the device path."""
+    numinternalthreads sizes the native engine's pool where the host
+    engine decodes the chunk; the device path does not use it."""
     dev = device_mod.resolve(device)
     data = _coerce_src(src)
     out = host_api.decompress_chunk(data, destsize, dev)
     if out is None:
-        out = engine.decompress_chunk(data, destsize)
+        out = backend.decompress_chunk(data, destsize, numinternalthreads)
     return out
 
 
@@ -382,11 +391,12 @@ def decompress(src, destsize: int | None = None, device=None) -> bytes:
 def getitem(src, start: int, nitems: int, device=None) -> bytes:
     """Partial decompression of items [start, start+nitems)
     (blosc_getitem, blosc.h:332-352): the device decodes only the blocks
-    that overlap the range; the host engine takes the chunks and ranges
-    the device path declines (gpu/host_api.getitem)."""
+    that overlap the range; the host engine (native first, single-
+    threaded as the reference's) takes the chunks and ranges the device
+    path declines (gpu/host_api.getitem)."""
     dev = device_mod.resolve(device)
     data = _coerce_src(src)
     out = host_api.getitem(data, start, nitems, dev)
     if out is not None:
         return out
-    return engine.getitem(data, start, nitems)
+    return backend.getitem(data, start, nitems)

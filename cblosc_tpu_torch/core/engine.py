@@ -1,11 +1,11 @@
 """Host block engine: the chunk pieces the byte API needs on the host.
 
 The device pipeline (cblosc_tpu_torch.gpu) runs the full blocks; this
-engine runs what the device path hands to the host, exactly where the
-JAX package's device bridge does: the leftover block (different
-geometry, blosc.c:627-633), buffers with no full block, memcpyed chunks
-(clevel 0 or tiny buffers), and chunk decoding when the device path
-declines, and ``getitem``'s blocks where the device path declines. Its
+engine runs the leftover block for it (different geometry,
+blosc.c:627-633), as the JAX package's device bridge does, and the
+whole chunk jobs the device path declines (memcpyed chunks, codecs
+without a device encoder, decodes and ``getitem`` ranges the device
+declines) where core/backend.py's native engine lacks the codec. Its
 codecs come from the registry (models/registry.py): the numpy oracles
 of blosclz, LZ4/LZ4HC and snappy, CPython's built-in zlib and libzstd
 through ctypes (ops/codecs/).
@@ -47,7 +47,7 @@ class CompressionContext:
     dont_split: bool
     flags: int
     versionlz: int
-    nthreads: int = 1     # stored as the JAX package stores it; unused here
+    nthreads: int = 1     # the native engine's pool size; unused here
 
 
 def build_context(

@@ -13,7 +13,8 @@ there also ``gpu.codec.mine_group`` alone over the streams the compress
 call mines), it profiles
 one steady call each of ``gpu.pipeline.compress_blocks`` and
 ``decompress_blocks``; then one steady byte-API ``decompress_ctx`` each
-of the chunks the host engine writes: a clevel-9 blosclz chunk (256 KB
+of the chunks the host engine (core.backend: the native engine) writes:
+a clevel-9 blosclz chunk (256 KB
 of low-entropy bytes, the token-dense split the generic decoder takes),
 an LZ4 clevel-5 chunk of 4 MB synth (numcodecs' default codec: 128 KB
 splits, four of them dense, so the LZ4 walk runs twice, the default
@@ -42,7 +43,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .. import api
-from ..core import engine, policy
+from ..core import backend, engine, policy
 from ..format import constants as C
 from ..gpu import pipeline
 from .timing import synth
@@ -178,28 +179,28 @@ def main() -> None:
     n = 256 << 10
     low = (np.random.default_rng(11).integers(0, 8, n, dtype=np.uint8) * 16)
     ctx = engine.build_context(9, C.NOSHUFFLE, 1, n, n + 16, C.BLOSCLZ)
-    chunk = engine.compress_chunk(ctx, low.tobytes())
+    chunk = backend.compress_chunk(ctx, low.tobytes())
     r = _profile(lambda: api.decompress_ctx(chunk, device=dev),
                  "decompress_ctx host-engine clevel-9 256 KB", card)
     print(json.dumps(r))
     z = sy[:4 << 20].tobytes()
     ctx = engine.build_context(5, C.SHUFFLE, 8, len(z), len(z) + 16, C.LZ4)
-    chunk = engine.compress_chunk(ctx, z)
+    chunk = backend.compress_chunk(ctx, z)
     r = _profile(lambda: api.decompress_ctx(chunk, device=dev),
                  "decompress_ctx host-engine LZ4 clevel-5 synth 4 MB", card)
     print(json.dumps(r))
     ctx = engine.build_context(1, C.SHUFFLE, 8, len(z), len(z) + 16, C.SNAPPY)
-    chunk = engine.compress_chunk(ctx, z)
+    chunk = backend.compress_chunk(ctx, z)
     r = _profile(lambda: api.decompress_ctx(chunk, device=dev),
                  "decompress_ctx host-engine snappy synth 4 MB", card)
     print(json.dumps(r))
     ctx = engine.build_context(5, C.SHUFFLE, 8, len(z), len(z) + 16, C.ZLIB)
-    chunk = engine.compress_chunk(ctx, z)
+    chunk = backend.compress_chunk(ctx, z)
     r = _profile(lambda: api.decompress_ctx(chunk, device=dev),
                  "decompress_ctx host-engine zlib clevel-5 synth 4 MB", card)
     print(json.dumps(r))
     ctx = engine.build_context(5, C.SHUFFLE, 8, len(z), len(z) + 16, C.ZSTD)
-    chunk = engine.compress_chunk(ctx, z)
+    chunk = backend.compress_chunk(ctx, z)
     r = _profile(lambda: api.decompress_ctx(chunk, device=dev),
                  "decompress_ctx host-engine zstd clevel-5 synth 4 MB", card)
     print(json.dumps(r))

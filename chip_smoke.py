@@ -7,7 +7,13 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card's name and power limit; build the CUDA kernels from
-     cblosc_tpu_torch/csrc (in parallel, into build/torch_kernels/);
+     cblosc_tpu_torch/csrc (in parallel, into build/torch_kernels/) and,
+     beside them, the native host engine from
+     cblosc_tpu_torch/native/src (g++, into build/torch_native/), with
+     the host CPU; the host-engine fixtures (chunks of the host-encoded
+     codecs and of the generic decoder's rows) come from core.backend,
+     the native engine, and each equals the numpy engine's chunk on one
+     4 MB input per codec (blosclz: its 256 KB input);
   2. each kernel on CUDA tensors against its plain PyTorch version on
      the same inputs, outputs equal (tolerance 0: integer code); the
      plain versions of the four serial parsers (walk, decode_one,
@@ -98,6 +104,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      rows handed to the decoder exactly those of the range's blocks, the
      codec's walk launched by a one-block range, and the card time of a
      one-block getitem beside the whole decompress_ctx of each chunk;
+     then the host engine: on 4 MB of synth (sbits 19, typesize 8,
+     shuffle, clevel 5), snappy, zlib and zstd compressed by
+     api.compress_ctx, which the native engine must serve
+     (core.backend.CALLS), each chunk equal to the numpy engine's
+     (snappy's on the first 512 KB) and decoded on the card by
+     api.decompress_ctx through its walk and expand, equal to the input,
+     both calls timed (median of 5: compress on the host clock, decode by
+     CUDA events) beside the host CPU and numinternalthreads; the 256 KB
+     clevel-9 blosclz chunk and a 32 KB LZ4 buffer through the API too,
+     with the engine or kernels that served them;
   4. the bench geometry on device-resident data: a 128 MB working set
      through gpu.pipeline.compress_blocks -> mask_past_csize ->
      decompress_blocks, verified equal, timed with CUDA events (call
@@ -128,8 +144,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      call times; the machine has one
      card, so no multi-GPU scaling is measured; both groups are
      destroyed before the last line;
-  6. the kernels line (launches: phases 3 and 5), then the device line,
-     last.
+  6. the kernels line (launches: phases 3 and 5, the host-engine
+     decodes included), then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package, and exits
 non-zero without a result when CUDA is unavailable or the package is
@@ -139,6 +155,8 @@ missing.
 from __future__ import annotations
 
 import json
+import os
+import statistics
 import subprocess
 import sys
 import time
@@ -245,6 +263,30 @@ def print_kernel(name: str, r: dict) -> None:
           f"{r['bound_ms']:.6f} ms")
 
 
+def _host_ms(fn, reps) -> float:
+    """Median ms of fn() on the host clock (host work: the host engine)."""
+    fn()
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def counted(totals: dict, fn):
+    """(fn(), launches): every launch count zeroed just before fn and read
+    just after; the counts add to totals."""
+    from cblosc_tpu_torch.gpu import kernels
+
+    kernels.reset_launches()
+    out = fn()
+    delta = dict(kernels.LAUNCHES)
+    for k, v in delta.items():
+        totals[k] += v
+    return out, delta
+
+
 def _maxdiff(a, b) -> int:
     """Largest absolute difference over paired outputs, on the host."""
     a, b = tuple(a), tuple(b)
@@ -327,10 +369,10 @@ def host_encoder_rows(dev, n=8192, count=24, seed=7):
 
 def host_engine_chunk(chunk_bytes):
     """A clevel-9 chunk of low-entropy bytes (<= 256 KB, typesize 1) from
-    the port's host engine: mixed-distance, token-dense streams that
-    overflow the walk's record budget, so the main path decodes them with
-    the generic decoder (K3)."""
-    from cblosc_tpu_torch.core import engine
+    the port's host engine (core.backend: the native engine): mixed-
+    distance, token-dense streams that overflow the walk's record budget,
+    so the main path decodes them with the generic decoder (K3)."""
+    from cblosc_tpu_torch.core import backend, engine
     from cblosc_tpu_torch.format import constants as C
 
     rng = np.random.default_rng(11)
@@ -338,7 +380,7 @@ def host_engine_chunk(chunk_bytes):
            * 16)
     ctx = engine.build_context(9, C.NOSHUFFLE, 1, low.size, low.size + 16,
                                C.BLOSCLZ)
-    return low.tobytes(), engine.compress_chunk(ctx, low.tobytes())
+    return low.tobytes(), backend.compress_chunk(ctx, low.tobytes())
 
 
 def chunk_rows(dev, chunk):
@@ -395,13 +437,44 @@ def lz4_main_rows(dev, chunk_bytes):
 
 
 def host_codec_chunk(code, clevel, data, typesize):
-    """A chunk of `data` from the port's host engine (shuffle)."""
-    from cblosc_tpu_torch.core import engine
+    """A chunk of `data` from the port's host engine (core.backend: the
+    native engine; shuffle)."""
+    from cblosc_tpu_torch.core import backend, engine
     from cblosc_tpu_torch.format import constants as C
 
     ctx = engine.build_context(clevel, C.SHUFFLE, typesize, len(data),
                                len(data) + 16, code)
-    return engine.compress_chunk(ctx, data)
+    return backend.compress_chunk(ctx, data)
+
+
+def numpy_engine_chunk(code, clevel, shuffle, data, typesize):
+    """(chunk, s): the same chunk from the port's numpy engine, the
+    native engine's reference, and its host seconds."""
+    from cblosc_tpu_torch.core import engine
+
+    ctx = engine.build_context(clevel, shuffle, typesize, len(data),
+                               len(data) + 16, code)
+    t0 = time.perf_counter()
+    chunk = engine.compress_chunk(ctx, data)
+    return chunk, time.perf_counter() - t0
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it, and its count."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = fields.get("model name", "unknown")
+    if name == "unknown":
+        name += (f" (vendor {fields.get('vendor_id', '?')}, family "
+                 f"{fields.get('cpu family', '?')}, model "
+                 f"{fields.get('model', '?')})")
+    return f"{name}, {os.cpu_count()} CPUs"
 
 
 def live_rows(rows, cs, neblock):
@@ -1351,21 +1424,14 @@ def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks,
 
     totals = dict.fromkeys(kernels.LAUNCHES, 0)
 
-    def counted(fn):
-        """fn() with every launch count zeroed just before it and read
-        just after; the counts add to the phase's totals."""
-        kernels.reset_launches()
-        out = fn()
-        delta = dict(kernels.LAUNCHES)
-        for k, v in delta.items():
-            totals[k] += v
-        return out, delta
+    def count(fn):
+        return counted(totals, fn)
 
     def device_decode(label, c, need):
         """Decode through the device bridge (None would be the host
         fallback) and check that the kernels in need launched."""
         t0 = time.perf_counter()
-        r, delta = counted(lambda: host_api.decompress_chunk(c, None, dev))
+        r, delta = count(lambda: host_api.decompress_chunk(c, None, dev))
         t1 = time.perf_counter()
         check(r is not None, f"{label}: the device path declined the chunk")
         if dev.type == "cuda":
@@ -1381,7 +1447,7 @@ def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks,
         t1 = time.perf_counter()
         r, td, delta = device_decode(label, c, need)
         check(r == data, f"{label}: round trip differs")
-        check(counted(lambda: tb.decompress_ctx(c, device=dev))[0] == data,
+        check(count(lambda: tb.decompress_ctx(c, device=dev))[0] == data,
               f"{label}: byte-API decode differs")
         check(engine.decompress_chunk(c) == data,
               f"{label}: host engine cannot decode the device chunk")
@@ -1413,7 +1479,7 @@ def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks,
     for label, data, chunk, walk in codec_chunks:
         r, td, delta = device_decode(label, chunk, (walk, "expand"))
         check(r == data, f"{label}: decode differs")
-        check(counted(lambda: tb.decompress_ctx(chunk, device=dev))[0]
+        check(count(lambda: tb.decompress_ctx(chunk, device=dev))[0]
               == data, f"{label}: byte-API decode differs")
         print(f"byte api {label}: {len(data)} B <- {len(chunk)} B decoded "
               f"on {dev.type} in {td:.3f} s (host clock, first call); "
@@ -1423,7 +1489,7 @@ def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks,
               "the port's device='cpu' chunk of the same buffer")
         r, td, delta = device_decode(label, chunk, need)
         check(r == data, f"{label}: round trip differs")
-        check(counted(lambda: tb.decompress_ctx(chunk, device=dev))[0]
+        check(count(lambda: tb.decompress_ctx(chunk, device=dev))[0]
               == data, f"{label}: byte-API decode differs")
         check(engine.decompress_chunk(chunk) == data,
               f"{label}: host engine cannot decode the card's chunk")
@@ -1432,7 +1498,7 @@ def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks,
               f"to the CPU's chunk; decompress {td:.3f} s (host clock, first "
               f"call); decompress launches {delta}")
     for label, data, chunk in host_only:
-        r, delta = counted(lambda: host_api.decompress_chunk(chunk, None, dev))
+        r, delta = count(lambda: host_api.decompress_chunk(chunk, None, dev))
         check(r is None, f"{label}: the device path must decline it")
         check(tb.decompress_ctx(chunk, device=dev) == data,
               f"{label}: byte-API decode differs")
@@ -1553,6 +1619,122 @@ def phase_getitem(dev, cases, reps):
                               if dev.type == "cuda" else "host clock"}))
     finally:
         pipeline.decompress_blocks = decode
+    return totals
+
+
+def phase_host_engine(dev, chunk_bytes, low, host_chunk, reps, card):
+    """The byte API's host-encoded codecs as the JAX package runs them:
+    compress on the native host engine, decode on the card. On 4 MB of
+    synth (sbits 19, typesize 8, shuffle, clevel 5: numcodecs' default
+    Blosc() geometry), for snappy, zlib and zstd: api.compress_ctx on the
+    default device, which core.backend must serve on the native engine
+    (CALLS["native"] up by one, CALLS["numpy"] not), its chunk equal to
+    the numpy engine's (snappy on the first 512 KB, to keep the run
+    short); api.decompress_ctx on the card, equal to the input, through
+    the codec's walk and expand with no host-engine call; each call's
+    median ms of `reps` (compress on the host clock, decode by CUDA
+    events). Then the 256 KB clevel-9 blosclz input and a 32 KB LZ4
+    buffer through the API, and the host engine's blosclz chunk of that
+    input, with the engine or kernels that served each call. Returns the
+    decodes' launches (each counted from 0)."""
+    import cblosc_tpu_torch as tb
+    from cblosc_tpu_torch.core import backend
+    from cblosc_tpu_torch.format import constants as C
+    from cblosc_tpu_torch.format.header import ChunkHeader
+    from cblosc_tpu_torch.gpu import kernels
+    from cblosc_tpu_torch.utils.timing import synth
+
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    sy = synth(chunk_bytes, 8, 19).tobytes()
+    host = host_cpu()
+    print(f"host engine: host CPU {host}; numinternalthreads 1 (the "
+          f"default); card {card}")
+    walks = {"snappy": "snappy_walk", "zlib": "zlib_walk",
+             "zstd": "zstd_walk"}
+    for name, walk in walks.items():
+        code = C.COMPCODES[name]
+
+        def comp(d=sy, name=name):
+            return tb.compress_ctx(5, C.SHUFFLE, 8, d, compressor=name,
+                                   device=dev)
+
+        backend.reset_calls()
+        t0 = time.perf_counter()
+        chunk = comp()
+        first_s = time.perf_counter() - t0
+        check(backend.CALLS == {"native": 1, "numpy": 0},
+              f"host engine {name}: the native engine did not serve the "
+              f"compress ({backend.CALLS})")
+        part = sy[:512 << 10] if name == "snappy" else sy
+        want, numpy_s = numpy_engine_chunk(code, 5, C.SHUFFLE, part, 8)
+        check((comp(part) if part is not sy else chunk) == want,
+              f"host engine {name}: the chunk differs from the numpy "
+              "engine's")
+        backend.reset_calls()
+        out, delta = counted(totals, lambda: tb.decompress_ctx(chunk,
+                                                               device=dev))
+        check(out == sy, f"host engine {name}: the card's decode differs")
+        check(backend.CALLS == {"native": 0, "numpy": 0},
+              f"host engine {name}: the decode took the host engine")
+        if dev.type == "cuda":
+            for k in (walk, "expand"):
+                check(delta[k] > 0, f"host engine {name}: decode did not "
+                      f"launch {k}")
+        comp_ms = _host_ms(comp, reps)
+        dec_ms = _ms(dev, lambda: tb.decompress_ctx(chunk, device=dev), reps)
+        print(json.dumps({
+            "host_engine": name, "bytes": len(sy), "clevel": 5,
+            "typesize": 8, "chunk_bytes": len(chunk),
+            "ratio": len(sy) / len(chunk), "compress_ms": comp_ms,
+            "compress_first_s": first_s,
+            "compress_timer": f"host clock, median of {reps}",
+            "numpy_engine_s": numpy_s, "numpy_engine_bytes": len(part),
+            "equal_to_numpy_engine": True, "decompress_ms": dec_ms,
+            "decompress_timer": f"CUDA events, median of {reps}"
+            if dev.type == "cuda" else "host clock (rehearsal)",
+            "decompress_launches": delta, "host_cpu": host, "card": card}))
+    # the 256 KB clevel-9 blosclz chunk and a 32 KB LZ4 buffer: the API's
+    # chunk of each (its compress served by the card or a host engine),
+    # and the host engine's blosclz chunk, each decoded by the API
+    for label, data, (cl, sh, ts, comp_name), fixture in (
+            ("256 KB clevel-9 blosclz low-entropy", low,
+             (9, C.NOSHUFFLE, 1, "blosclz"), host_chunk),
+            ("32 KB LZ4 synth", sy[:32 << 10], (5, C.SHUFFLE, 8, "lz4"),
+             None)):
+
+        def comp(data=data, cl=cl, sh=sh, ts=ts, comp_name=comp_name):
+            return tb.compress_ctx(cl, sh, ts, data, compressor=comp_name,
+                                   device=dev)
+
+        backend.reset_calls()
+        kernels.reset_launches()
+        written = comp()
+        served = dict(backend.CALLS)
+        entry = {
+            "api": label, "bytes": len(data),
+            "compress_served_by": "native" if served["native"] else
+            "numpy" if served["numpy"] else dev.type,
+            "compress_launches": dict(kernels.LAUNCHES),
+            "compress_ms": _host_ms(comp, reps), "decodes": []}
+        for which, chunk in (("the API's", written),
+                             ("the host engine's", fixture)):
+            if chunk is None:
+                continue
+            backend.reset_calls()
+            out, delta = counted(totals, lambda: tb.decompress_ctx(
+                chunk, device=dev))
+            check(out == data, f"host engine {label}: {which} chunk's "
+                  "decode differs")
+            entry["decodes"].append({
+                "chunk": which, "chunk_bytes": len(chunk),
+                "memcpyed": bool(ChunkHeader.decode(chunk).memcpyed),
+                "host_engine_calls": dict(backend.CALLS),
+                "launches": delta,
+                "ms": _ms(dev, lambda: tb.decompress_ctx(chunk, device=dev),
+                          reps)})
+        entry.update(timers=f"compress host clock, decompress CUDA events; "
+                     f"median of {reps}", host_cpu=host, card=card)
+        print(json.dumps(entry))
     return totals
 
 
@@ -1749,20 +1931,33 @@ def phase_bench(dev, label, data, typesize, chunk_bytes, reps, card,
 
 
 def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
+    from concurrent.futures import ThreadPoolExecutor
+
     from cblosc_tpu_torch.gpu import kernels
+    from cblosc_tpu_torch.native import binding
     from cblosc_tpu_torch.utils.timing import synth
 
     card = card_line() if dev.type == "cuda" else "cpu rehearsal"
     print(card)
-    if dev.type == "cuda":
+
+    def timed(fn):
         t0 = time.perf_counter()
-        kernels.build_all()
-        print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-              f"({', '.join(kernels.SOURCES.values())})")
-        for name, log in kernels.build_log.items():
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}: {line.strip()}")
+        fn()
+        return time.perf_counter() - t0
+
+    # the native host engine (g++) builds beside the kernels (nvcc)
+    with ThreadPoolExecutor(1) as pool:
+        native_s = pool.submit(timed, binding.load)
+        if dev.type == "cuda":
+            print(f"kernel build: {timed(kernels.build_all):.2f} s "
+                  f"({', '.join(kernels.SOURCES.values())})")
+            for name, log in kernels.build_log.items():
+                for line in log.splitlines():
+                    if "registers" in line or "spill" in line:
+                        print(f"  ptxas {name}: {line.strip()}")
+        print(f"native host engine build: {native_s.result():.2f} s "
+              f"({binding.build()}, g++ {' '.join(binding.CXX_FLAGS)}; host "
+              f"CPU {host_cpu()})")
 
     import cblosc_tpu_torch as tb
     from cblosc_tpu_torch.format import constants as C
@@ -1793,6 +1988,24 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
           f"{'/'.join(str(len(zstd_chunks[(c, 'synth')])) for c in (1, 5, 9))} "
           f"B; zstd int32 arange clevel 5 {len(zstd_chunks[(5, 'int32 arange')])}"
           f" B ({time.perf_counter() - t0:.1f} s)")
+    # the fixtures come from the native engine: each equal to the numpy
+    # engine's chunk, one 4 MB input per codec (the blosclz one: 256 KB)
+    numpy_s = 0.0
+    for label, (code, cl, sh, d, ts), chunk in (
+            ("blosclz clevel 9", (C.BLOSCLZ, 9, C.NOSHUFFLE, low, 1),
+             host_chunk),
+            ("LZ4 clevel 5", (C.LZ4, 5, C.SHUFFLE, sy, 8), lz4_chunk),
+            ("snappy clevel 1", (C.SNAPPY, 1, C.SHUFFLE, sy, 8), snappy_chunk),
+            ("zlib clevel 5", (C.ZLIB, 5, C.SHUFFLE, sy, 8),
+             zlib_chunks[(5, "synth")]),
+            ("zstd clevel 5", (C.ZSTD, 5, C.SHUFFLE, sy, 8),
+             zstd_chunks[(5, "synth")])):
+        want, sec = numpy_engine_chunk(code, cl, sh, d, ts)
+        numpy_s += sec
+        check(chunk == want, f"host-engine {label} chunk differs from the "
+              "numpy engine's")
+    print(f"host-engine chunks equal to the numpy engine's (blosclz, LZ4, "
+          f"snappy, zlib, zstd; the numpy engine took {numpy_s:.1f} s)")
     # the ratio clevels, written on the card and by the port on the CPU:
     # (compressor, data, typesize); the LZ4 synth chunk at clevel 5 is
     # numcodecs' default Blosc(); the int32 arange and the uint8
@@ -1895,6 +2108,9 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
          tb.compress_ctx(1, C.SHUFFLE, 8, left, device=dev), (), True)], reps)
     print(json.dumps({"getitem_launches": gi}))
     stamp("phase 3: getitem")
+    he = phase_host_engine(dev, chunk_bytes, low, host_chunk, reps, card)
+    print(json.dumps({"host_engine_launches": he}))
+    stamp("phase 3: host engine")
     phase_bench(dev, "synth sbits19 ts8", synth(workset, 8, 19), 8,
                 chunk_bytes, reps, card)
     phase_bench(dev, "int32 arange ts4",
@@ -1913,7 +2129,7 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
     stamp("phase 4: 128 MB round trips and the 128 MB zlib and zstd decodes")
     sharded = phase_sharded(dev, sy, ar, reps)
     stamp("phase 5: the sharded engine on a one-rank group")
-    counts = {k: counts[k] + gi[k] + sharded[k] for k in counts}
+    counts = {k: counts[k] + gi[k] + he[k] + sharded[k] for k in counts}
 
     src = {"expand": ("cblosc_tpu_torch/csrc/expand.cu",
                       "cblosc_tpu/tpu/expand.py:258"),

@@ -24,6 +24,7 @@ APIs then return the same bytes."""
 import numpy as np
 import pytest
 
+import cblosc_tpu as jb
 from cblosc_tpu.core import engine as jeng
 from cblosc_tpu.format import constants as C
 from cblosc_tpu.format.header import FormatError as JFormatError
@@ -217,8 +218,11 @@ def _raises(fn):
 @pytest.mark.parametrize("bad", ["start", "stop", "nitems"])
 def test_out_of_bounds(chunks, cid, bad):
     """IndexError in both packages' APIs (the JAX bridge raises before
-    any device work); the host engines agree with each other, also on a
-    negative nitems, which they read as an empty range."""
+    any device work); the numpy host engines agree with each other, also
+    on a negative nitems, which they read as an empty range. Where the
+    bridge declines (memcpyed), each API takes its host-engine router,
+    native first, and the two APIs agree (the native engines read a
+    negative nitems as out of bounds)."""
     data, chunk = chunks[cid]
     items = N // ChunkHeader.decode(chunk).typesize
     start, nitems = {"start": (-1, 10), "stop": (items - 5, 10),
@@ -227,7 +231,9 @@ def test_out_of_bounds(chunks, cid, bad):
     assert _raises(lambda: teng.getitem(chunk, start, nitems)) == host
     api = _raises(lambda: tb.getitem(chunk, start, nitems, device="cpu"))
     if cid.startswith("memcpyed"):
-        assert api == host         # the bridge declines: the host engine
+        # the bridge declines: the host-engine router
+        assert api == _raises(lambda: jb.getitem(chunk, start, nitems,
+                                                 backend="tpu"))
     else:
         assert api is IndexError
         assert _raises(lambda: jh.getitem(chunk, start, nitems)) is IndexError
