@@ -55,6 +55,7 @@ from .format.header import (
 )
 from .gpu import host_api
 from .models import registry
+from .utils import trace
 
 __all__ = [
     "init", "destroy", "free_resources",
@@ -313,22 +314,25 @@ def compress_ctx(
     AUTO_SPLIT and FORWARD_COMPAT_SPLIT (the default).
     numinternalthreads sizes the native engine's pool where the host
     engine writes the chunk; the device path does not use it."""
-    dev = device_mod.resolve(device)
-    data = _coerce_src(src)
-    nbytes = len(data)
-    if destsize is None:
-        destsize = nbytes + C.MAX_OVERHEAD
-    codec = registry.get_by_name(compressor)
-    ctx = engine.build_context(
-        clevel, doshuffle, typesize, nbytes, destsize, codec.code,
-        forced_blocksize=blocksize, splitmode=splitmode,
-        nthreads=numinternalthreads,
-    )
-    out = host_api.compress_chunk(ctx, data, dev)
-    if out is None:
-        out = backend.compress_chunk(ctx, data)
-    _warn(out, nbytes, clevel)
-    return out
+    with trace.span("api.compress_ctx"):
+        dev = device_mod.resolve(device)
+        data = _coerce_src(src)
+        nbytes = len(data)
+        if destsize is None:
+            destsize = nbytes + C.MAX_OVERHEAD
+        codec = registry.get_by_name(compressor)
+        ctx = engine.build_context(
+            clevel, doshuffle, typesize, nbytes, destsize, codec.code,
+            forced_blocksize=blocksize, splitmode=splitmode,
+            nthreads=numinternalthreads,
+        )
+        out = host_api.compress_chunk(ctx, data, dev)
+        if out is None:
+            out = backend.compress_chunk(ctx, data)
+        else:
+            trace.count("route.device", 1)
+        _warn(out, nbytes, clevel)
+        return out
 
 
 def compress(clevel: int, doshuffle: int, typesize: int, src,
@@ -368,12 +372,15 @@ def decompress_ctx(src, destsize: int | None = None,
     """Stateless decompression (blosc_decompress_ctx, blosc.h:304-330).
     numinternalthreads sizes the native engine's pool where the host
     engine decodes the chunk; the device path does not use it."""
-    dev = device_mod.resolve(device)
-    data = _coerce_src(src)
-    out = host_api.decompress_chunk(data, destsize, dev)
-    if out is None:
-        out = backend.decompress_chunk(data, destsize, numinternalthreads)
-    return out
+    with trace.span("api.decompress_ctx"):
+        dev = device_mod.resolve(device)
+        data = _coerce_src(src)
+        out = host_api.decompress_chunk(data, destsize, dev)
+        if out is None:
+            return backend.decompress_chunk(data, destsize,
+                                            numinternalthreads)
+        trace.count("route.device", 1)
+        return out
 
 
 def decompress(src, destsize: int | None = None, device=None) -> bytes:
@@ -394,9 +401,11 @@ def getitem(src, start: int, nitems: int, device=None) -> bytes:
     that overlap the range; the host engine (native first, single-
     threaded as the reference's) takes the chunks and ranges the device
     path declines (gpu/host_api.getitem)."""
-    dev = device_mod.resolve(device)
-    data = _coerce_src(src)
-    out = host_api.getitem(data, start, nitems, dev)
-    if out is not None:
+    with trace.span("api.getitem"):
+        dev = device_mod.resolve(device)
+        data = _coerce_src(src)
+        out = host_api.getitem(data, start, nitems, dev)
+        if out is None:
+            return backend.getitem(data, start, nitems)
+        trace.count("route.device", 1)
         return out
-    return backend.getitem(data, start, nitems)

@@ -12,12 +12,13 @@ libzstd), and then the numpy engine (core/engine.py) serves the call.
 
 ``CALLS`` counts the calls each engine served, beside
 gpu/kernels.LAUNCHES, so that tests and chip_smoke.py see which engine
-ran.
+ran; the open trace span (utils/trace.py) counts it as its route.
 """
 
 from __future__ import annotations
 
 from ..native import binding as native
+from ..utils import trace
 from . import engine
 
 CALLS = {"native": 0, "numpy": 0}
@@ -28,12 +29,17 @@ def reset_calls() -> None:
         CALLS[k] = 0
 
 
+def _served(name: str) -> None:
+    CALLS[name] += 1
+    trace.count("route." + name, 1)
+
+
 def compress_chunk(ctx, data: bytes) -> bytes:
     out = native.compress_chunk(ctx, data)
     if out is not None:
-        CALLS["native"] += 1
+        _served("native")
         return out
-    CALLS["numpy"] += 1
+    _served("numpy")
     return engine.compress_chunk(ctx, data)
 
 
@@ -41,18 +47,18 @@ def decompress_chunk(chunk: bytes, destsize: int | None,
                      nthreads: int) -> bytes:
     out = native.decompress_chunk(chunk, destsize, nthreads)
     if out is not None:
-        CALLS["native"] += 1
+        _served("native")
         return out
-    CALLS["numpy"] += 1
+    _served("numpy")
     return engine.decompress_chunk(chunk, destsize)
 
 
 def getitem(chunk: bytes, start: int, nitems: int) -> bytes:
     out = native.getitem(chunk, start, nitems)
     if out is not None:
-        CALLS["native"] += 1
+        _served("native")
         return out
-    CALLS["numpy"] += 1
+    _served("numpy")
     return engine.getitem(chunk, start, nitems)
 
 

@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from ..utils import trace
 
 I64 = torch.int64
 U8 = torch.uint8
@@ -246,27 +247,32 @@ def mine_group(s: torch.Tensor, d_row: torch.Tensor,
 
     Returns (d_m int64 (N,), 0 = not adopted; eq_m bool (N, n), empty on
     rows that adopt nothing)."""
-    N, n = s.shape
-    zero = torch.zeros(N, dtype=I64, device=s.device)
-    if n >= 1024:
-        dp, hp = _mine_distance(s[:, :min(n, _MINE_PREFIX)])
-    else:
-        dp = hp = zero
-    FG = _fold_g(n)
-    if n >= 32768 and n % FG == 0:
-        dg, hg = _mine_distance(_fold(s, FG), 1, max_d // FG)
-        dg = dg * FG
-        dg = torch.where(dg < n, dg, 0)
-        hg = torch.where(dg > 0, hg * FG, 0)     # hits count FG-byte groups
-    else:
-        dg = hg = zero
-    dp = torch.where(dp <= max_d, dp, 0)
-    hp = torch.where(dp > 0, hp, 0)
-    d = torch.where(hg > hp, dg, dp)
-    eq_m = _eq_at(s, torch.clamp(d, min=1))
-    cov = torch.where(d > 0, eq_m.sum(dim=1), -1)
-    adopt = (cov >= n // 6) & (d > 0) & (d != d_row.reshape(-1))
-    return torch.where(adopt, d, 0), eq_m & adopt[:, None]
+    with trace.span("codec.mine_group"):
+        N, n = s.shape
+        zero = torch.zeros(N, dtype=I64, device=s.device)
+        with trace.span("mine.prefix"):
+            if n >= 1024:
+                dp, hp = _mine_distance(s[:, :min(n, _MINE_PREFIX)])
+            else:
+                dp = hp = zero
+        FG = _fold_g(n)
+        with trace.span("mine.fold"):
+            if n >= 32768 and n % FG == 0:
+                dg, hg = _mine_distance(_fold(s, FG), 1, max_d // FG)
+                dg = dg * FG
+                dg = torch.where(dg < n, dg, 0)
+                # hits count FG-byte groups
+                hg = torch.where(dg > 0, hg * FG, 0)
+            else:
+                dg = hg = zero
+        with trace.span("mine.verify"):
+            dp = torch.where(dp <= max_d, dp, 0)
+            hp = torch.where(dp > 0, hp, 0)
+            d = torch.where(hg > hp, dg, dp)
+            eq_m = _eq_at(s, torch.clamp(d, min=1))
+            cov = torch.where(d > 0, eq_m.sum(dim=1), -1)
+            adopt = (cov >= n // 6) & (d > 0) & (d != d_row.reshape(-1))
+            return torch.where(adopt, d, 0), eq_m & adopt[:, None]
 
 
 def _segment(eq: torch.Tensor, min_len, idx: torch.Tensor):

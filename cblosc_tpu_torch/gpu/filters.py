@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..format import constants as C
+from ..utils import trace
 
 
 def _check(x: torch.Tensor, typesize: int, bits: bool) -> int:
@@ -128,21 +129,23 @@ def _with_tail(kernel, typesize: int, x: torch.Tensor, quantum: int) -> torch.Te
 
 
 def apply_filter(doshuffle: int, typesize: int, x: torch.Tensor) -> torch.Tensor:
-    if doshuffle == C.SHUFFLE and typesize > 1:
-        return _with_tail(shuffle, typesize, x, typesize)
-    if doshuffle == C.BITSHUFFLE:
-        # complete elements only; their count must be a multiple of 8
-        if (x.shape[1] // typesize) % 8 == 0:
-            return _with_tail(bitshuffle, typesize, x, typesize)
-        return x  # pass-through geometry (shuffle.c:412-414)
-    return x
+    with trace.span("filters.apply"):
+        if doshuffle == C.SHUFFLE and typesize > 1:
+            return _with_tail(shuffle, typesize, x, typesize)
+        if doshuffle == C.BITSHUFFLE:
+            # complete elements only; their count must be a multiple of 8
+            if (x.shape[1] // typesize) % 8 == 0:
+                return _with_tail(bitshuffle, typesize, x, typesize)
+            return x  # pass-through geometry (shuffle.c:412-414)
+        return x
 
 
 def undo_filter(doshuffle: int, typesize: int, x: torch.Tensor) -> torch.Tensor:
-    if doshuffle == C.SHUFFLE and typesize > 1:
-        return _with_tail(unshuffle, typesize, x, typesize)
-    if doshuffle == C.BITSHUFFLE:
-        if (x.shape[1] // typesize) % 8 == 0:
-            return _with_tail(bitunshuffle, typesize, x, typesize)
+    with trace.span("filters.undo"):
+        if doshuffle == C.SHUFFLE and typesize > 1:
+            return _with_tail(unshuffle, typesize, x, typesize)
+        if doshuffle == C.BITSHUFFLE:
+            if (x.shape[1] // typesize) % 8 == 0:
+                return _with_tail(bitunshuffle, typesize, x, typesize)
+            return x
         return x
-    return x

@@ -31,6 +31,7 @@ import torch
 from ..core import engine, policy
 from ..format import constants as C
 from ..format.header import ChunkHeader, FormatError, read_bstarts, validate_header
+from ..utils import trace
 
 
 def compress_chunk(ctx, data: bytes, device: torch.device) -> bytes | None:
@@ -64,10 +65,12 @@ def compress_chunk(ctx, data: bytes, device: torch.device) -> bytes | None:
             or pipeline.encoder(ctx.compcode, ctx.blocksize // nsplits) is None):
         return None
 
-    src = np.frombuffer(bytes(data), dtype=np.uint8)
-    x = torch.from_numpy(
-        src[: nfull * ctx.blocksize].reshape(nfull, ctx.blocksize).copy()
-    ).to(device)
+    with trace.span("host_api.stage_in"):
+        src = np.frombuffer(bytes(data), dtype=np.uint8)
+        x = torch.from_numpy(
+            src[: nfull * ctx.blocksize].reshape(nfull, ctx.blocksize).copy()
+        ).to(device)
+        trace.count("h2d_bytes", x.nbytes)
     slots, csizes = pipeline.compress_blocks(
         x, ctx.doshuffle, ctx.typesize, nsplits,
         policy.device_min_bytes_per_iter(ctx.clevel), ctx.compcode,
@@ -78,35 +81,39 @@ def compress_chunk(ctx, data: bytes, device: torch.device) -> bytes | None:
     # fetch of the worst-case body
     neblock = ctx.blocksize // nsplits
     cap = nfull * nsplits * (neblock + 4)    # stored-raw rule caps csize
-    body = _compact_body(slots, csizes, cap).cpu().numpy()
-    cs_np = csizes.cpu().numpy().astype(np.int64)
+    with trace.span("host_api.fetch"):
+        body_dev = _compact_body(slots, csizes, cap)
+        body = body_dev.cpu().numpy()
+        cs_np = csizes.cpu().numpy().astype(np.int64)
+        trace.count("d2h_bytes", body_dev.nbytes + csizes.nbytes)
 
-    header = 16 + 4 * ctx.nblocks
-    blk_sizes = (cs_np.reshape(nfull, nsplits) + 4).sum(axis=1)
-    bstarts = header + np.concatenate(([0], np.cumsum(blk_sizes)))
-    body_len = int(bstarts[-1]) - header
-    total = header + body_len
-    bstarts = [int(b) for b in bstarts[:nfull]]
+    with trace.span("host_api.assemble"):
+        header = 16 + 4 * ctx.nblocks
+        blk_sizes = (cs_np.reshape(nfull, nsplits) + 4).sum(axis=1)
+        bstarts = header + np.concatenate(([0], np.cumsum(blk_sizes)))
+        body_len = int(bstarts[-1]) - header
+        total = header + body_len
+        bstarts = [int(b) for b in bstarts[:nfull]]
 
-    tail = b""
-    if ctx.leftover:
-        enc = engine.compress_block(ctx, src, nfull)
-        if enc is None:
+        tail = b""
+        if ctx.leftover:
+            enc = engine.compress_block(ctx, src, nfull)
+            if enc is None:
+                return _fallback_memcpy(ctx, src)
+            tail = bytes(enc)
+            bstarts.append(total)
+            total += len(tail)
+        if total > ctx.destsize:
             return _fallback_memcpy(ctx, src)
-        tail = bytes(enc)
-        bstarts.append(total)
-        total += len(tail)
-    if total > ctx.destsize:
-        return _fallback_memcpy(ctx, src)
-    hdr = ChunkHeader(
-        version=C.VERSION_FORMAT, versionlz=ctx.versionlz, flags=ctx.flags,
-        typesize=ctx.typesize & 0xFF, nbytes=ctx.nbytes,
-        blocksize=ctx.blocksize, cbytes=total,
-    )
-    return b"".join([
-        hdr.encode(), struct.pack(f"<{ctx.nblocks}i", *bstarts),
-        body[:body_len].tobytes(), tail,
-    ])
+        hdr = ChunkHeader(
+            version=C.VERSION_FORMAT, versionlz=ctx.versionlz,
+            flags=ctx.flags, typesize=ctx.typesize & 0xFF, nbytes=ctx.nbytes,
+            blocksize=ctx.blocksize, cbytes=total,
+        )
+        return b"".join([
+            hdr.encode(), struct.pack(f"<{ctx.nblocks}i", *bstarts),
+            body[:body_len].tobytes(), tail,
+        ])
 
 
 def _compact_body(slots, csizes, cap: int):
@@ -168,72 +175,91 @@ def _doshuffle(hdr: ChunkHeader) -> int:
         C.BITSHUFFLE if hdr.dobitshuffle else C.NOSHUFFLE)
 
 
-def _decode_blocks(chunk: np.ndarray, hdr: ChunkHeader, bstarts, b0: int,
-                   b1: int, nsplits: int, device: torch.device,
+def _decode_blocks(chunk: np.ndarray, hdr: ChunkHeader, offs: np.ndarray,
+                   csizes: np.ndarray, nsplits: int, device: torch.device,
                    what: str) -> np.ndarray | None:
-    """Decode the full blocks [b0, b1) of a chunk on the device: gather
-    their split streams, mask past each csize, decode and unfilter, with
-    one wider-budget retry where a row errs. Returns their bytes
-    ((b1 - b0) * blocksize), or None where a non-blosclz chunk still
-    errs (foreign geometry: the host engine decodes it); a blosclz chunk
-    that still errs is corrupt."""
+    """Decode full blocks of a chunk on the device from their split table
+    (:func:`_split_table`): gather their split streams, mask past each
+    csize, decode and unfilter, with one wider-budget retry where a row
+    errs. Returns their bytes (blocks * blocksize), or None where a
+    non-blosclz chunk still errs (foreign geometry: the host engine
+    decodes it); a blosclz chunk that still errs is corrupt."""
     from . import pipeline
 
     neblock = hdr.blocksize // nsplits
-    offs, csizes = _split_table(chunk, bstarts[b0:b1], nsplits)
     width = pipeline.decode_slot_width(neblock, hdr.compcode)
-    chunk_dev = torch.from_numpy(chunk.copy()).to(device)
-    cs_dev = torch.from_numpy(csizes).to(device)
-    rows = pipeline.gather_slots(chunk_dev, torch.from_numpy(offs).to(device),
-                                 width)
-    rows = pipeline.mask_past_csize(rows, cs_dev, width)
+    with trace.span("host_api.stage_in"):
+        chunk_dev = torch.from_numpy(chunk.copy()).to(device)
+        offs_dev = torch.from_numpy(offs).to(device)
+        cs_dev = torch.from_numpy(csizes).to(device)
+        trace.count("h2d_bytes",
+                    chunk_dev.nbytes + offs_dev.nbytes + cs_dev.nbytes)
+    with trace.span("pipeline.gather"):
+        rows = pipeline.gather_slots(chunk_dev, offs_dev, width)
+        rows = pipeline.mask_past_csize(rows, cs_dev, width)
     args = (rows, cs_dev, neblock, _doshuffle(hdr), hdr.typesize, nsplits,
             hdr.compcode)
     blocks, err = pipeline.decompress_blocks(*args)
-    if bool(err.any()):
+    if _erred(err):
+        trace.count("erred_rows", err)
         hi = _escalated_budget(neblock, hdr.compcode)
         if hi:      # token- or event-dense streams: one wider-budget retry
+            trace.count("retried_rows", err.shape[0])
             blocks, err = pipeline.decompress_blocks(*args, hi)
-        if bool(err.any()):
+        if _erred(err):
             if hdr.compcode != C.BLOSCLZ:
                 return None  # foreign geometry: the host engine decodes it
             raise FormatError(f"corrupt blosclz stream (device {what})")
-    return blocks.cpu().numpy().reshape(-1)
+    with trace.span("host_api.fetch"):
+        out = blocks.cpu().numpy().reshape(-1)
+        trace.count("d2h_bytes", blocks.nbytes)
+    return out
+
+
+def _erred(err: torch.Tensor) -> bool:
+    """Whether any row erred: one flag read back from the device."""
+    with trace.span("host_api.err_check"):
+        any_err = err.any()
+        bad = bool(any_err)
+        trace.count("d2h_bytes", any_err.nbytes)
+        return bad
 
 
 def decompress_chunk(chunk_bytes, destsize: int | None,
                      device: torch.device) -> bytes | None:
     """Decompress via the device pipeline; None for the host engine."""
-    chunk = np.frombuffer(bytes(chunk_bytes), dtype=np.uint8)
-    hdr = ChunkHeader.decode(chunk_bytes)
-    if destsize is None:
-        destsize = hdr.nbytes
-    validate_header(hdr, destsize)
-    if hdr.nbytes == 0:
-        return b""
-    if hdr.memcpyed:
-        return None
-    nblocks, leftover = hdr.nblocks, hdr.leftover
-    nfull = nblocks - (1 if leftover else 0)
-    if nfull == 0:
-        return None
-    nsplits = policy.nsplits_decode(
-        hdr.dont_split, hdr.typesize, hdr.blocksize, False
-    )
-    if hdr.blocksize % nsplits:
-        return None
+    with trace.span("host_api.parse"):
+        chunk = np.frombuffer(bytes(chunk_bytes), dtype=np.uint8)
+        hdr = ChunkHeader.decode(chunk_bytes)
+        if destsize is None:
+            destsize = hdr.nbytes
+        validate_header(hdr, destsize)
+        if hdr.nbytes == 0:
+            return b""
+        if hdr.memcpyed:
+            return None
+        nblocks, leftover = hdr.nblocks, hdr.leftover
+        nfull = nblocks - (1 if leftover else 0)
+        if nfull == 0:
+            return None
+        nsplits = policy.nsplits_decode(
+            hdr.dont_split, hdr.typesize, hdr.blocksize, False
+        )
+        if hdr.blocksize % nsplits:
+            return None
+        bstarts = read_bstarts(chunk_bytes, nblocks)
+        offs, csizes = _split_table(chunk, bstarts[:nfull], nsplits)
 
-    bstarts = read_bstarts(chunk_bytes, nblocks)
-    out = _decode_blocks(chunk, hdr, bstarts, 0, nfull, nsplits, device,
-                         "decode")
+    out = _decode_blocks(chunk, hdr, offs, csizes, nsplits, device, "decode")
     if out is None:
         return None
-    if leftover:
-        tail = engine.decompress_block(
-            hdr, chunk, bstarts[nfull], leftover, leftoverblock=True
-        )
-        return out.tobytes() + tail.tobytes()
-    return out.tobytes()
+    with trace.span("host_api.assemble"):
+        if leftover:
+            tail = engine.decompress_block(
+                hdr, chunk, bstarts[nfull], leftover, leftoverblock=True
+            )
+            return out.tobytes() + tail.tobytes()
+        return out.tobytes()
 
 
 def getitem(chunk_bytes, start: int, nitems: int,
@@ -248,37 +274,41 @@ def getitem(chunk_bytes, start: int, nitems: int,
     that still errs after the escalated budget."""
     from . import pipeline
 
-    chunk = np.frombuffer(bytes(chunk_bytes), dtype=np.uint8)
-    hdr = ChunkHeader.decode(chunk_bytes)
-    if (hdr.memcpyed or hdr.compcode not in pipeline.DEVICE_DECODE_CODECS
-            or hdr.nbytes == 0):
-        return None
-    ts = hdr.typesize
-    stop = start + nitems
-    if start < 0 or stop * ts > hdr.nbytes or nitems < 0:
-        raise IndexError("getitem range out of bounds")
-    b0 = (start * ts) // hdr.blocksize
-    b1 = min((stop * ts + hdr.blocksize - 1) // hdr.blocksize, hdr.nblocks)
-    nfull = hdr.nblocks - (1 if hdr.leftover else 0)
-    b1_dev = min(b1, nfull)
-    if b1_dev <= b0:
-        return None                 # only the leftover block: host engine
-    nsplits = policy.nsplits_decode(
-        hdr.dont_split, hdr.typesize, hdr.blocksize, False
-    )
-    if hdr.blocksize % nsplits:
-        return None
+    with trace.span("host_api.parse"):
+        chunk = np.frombuffer(bytes(chunk_bytes), dtype=np.uint8)
+        hdr = ChunkHeader.decode(chunk_bytes)
+        if (hdr.memcpyed or hdr.compcode not in pipeline.DEVICE_DECODE_CODECS
+                or hdr.nbytes == 0):
+            return None
+        ts = hdr.typesize
+        stop = start + nitems
+        if start < 0 or stop * ts > hdr.nbytes or nitems < 0:
+            raise IndexError("getitem range out of bounds")
+        b0 = (start * ts) // hdr.blocksize
+        b1 = min((stop * ts + hdr.blocksize - 1) // hdr.blocksize,
+                 hdr.nblocks)
+        nfull = hdr.nblocks - (1 if hdr.leftover else 0)
+        b1_dev = min(b1, nfull)
+        if b1_dev <= b0:
+            return None             # only the leftover block: host engine
+        nsplits = policy.nsplits_decode(
+            hdr.dont_split, hdr.typesize, hdr.blocksize, False
+        )
+        if hdr.blocksize % nsplits:
+            return None
+        bstarts = read_bstarts(chunk_bytes, hdr.nblocks)
+        offs, csizes = _split_table(chunk, bstarts[b0:b1_dev], nsplits)
 
-    bstarts = read_bstarts(chunk_bytes, hdr.nblocks)
-    out = _decode_blocks(chunk, hdr, bstarts, b0, b1_dev, nsplits, device,
+    out = _decode_blocks(chunk, hdr, offs, csizes, nsplits, device,
                          "getitem")
     if out is None:
         return None
-    if b1 > b1_dev:                 # the leftover block overlaps the range
-        tail = engine.decompress_block(
-            hdr, chunk, bstarts[nfull], hdr.leftover, leftoverblock=True
-        )
-        out = np.concatenate([out, tail])
-    lo = start * ts - b0 * hdr.blocksize
-    hi = stop * ts - b0 * hdr.blocksize
-    return out[lo:hi].tobytes()
+    with trace.span("host_api.assemble"):
+        if b1 > b1_dev:             # the leftover block overlaps the range
+            tail = engine.decompress_block(
+                hdr, chunk, bstarts[nfull], hdr.leftover, leftoverblock=True
+            )
+            out = np.concatenate([out, tail])
+        lo = start * ts - b0 * hdr.blocksize
+        hi = stop * ts - b0 * hdr.blocksize
+        return out[lo:hi].tobytes()

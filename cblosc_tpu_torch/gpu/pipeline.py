@@ -24,6 +24,7 @@ import torch
 from . import (codec, codec_lz4, codec_snappy, codec_zlib, codec_zstd,
                filters, structured)
 from ..format import constants as C
+from ..utils import trace
 
 I32 = torch.int32
 U8 = torch.uint8
@@ -75,12 +76,16 @@ def _encode_grouped(streams: torch.Tensor, mod, min_cratio_x100: int,
     rows, n = streams.shape
     group_bytes = _ENCODE_GROUP_BYTES // (2 if mine else 1)
     group = max(group_bytes // max(n, 1), 8)
+
+    def encode(s):
+        with trace.span("pipeline.encode_group"):
+            return mod.encode(s, codec.DISTANCES, min_cratio_x100, mine)
+
     if rows <= group:
-        return mod.encode(streams, codec.DISTANCES, min_cratio_x100, mine)
+        return encode(streams)
     pad = (-rows) % group
     sp = torch.nn.functional.pad(streams, (0, 0, 0, pad))
-    parts = [mod.encode(sp[i:i + group], codec.DISTANCES, min_cratio_x100,
-                        mine) for i in range(0, sp.shape[0], group)]
+    parts = [encode(sp[i:i + group]) for i in range(0, sp.shape[0], group)]
     return tuple(torch.cat([p[k] for p in parts])[:rows] for k in range(3))
 
 
@@ -98,35 +103,37 @@ def compress_blocks(
     decoder iterations exceed neblock / min_bytes_per_iter are stored
     raw too (0 disables that speed policy). compcode picks the encoder
     (:func:`encoder`); where it has none, this raises ValueError."""
-    nblocks, blocksize = blocks.shape
-    neblock = blocksize // nsplits
-    mod = encoder(compcode, neblock)
-    if mod is None:
-        raise ValueError(f"no device encoder for compcode {compcode} at "
-                         f"{neblock}-byte splits")
+    with trace.span("pipeline.compress_blocks"):
+        nblocks, blocksize = blocks.shape
+        neblock = blocksize // nsplits
+        mod = encoder(compcode, neblock)
+        if mod is None:
+            raise ValueError(f"no device encoder for compcode {compcode} "
+                             f"at {neblock}-byte splits")
 
-    def one_batch(blk):
-        filtered = filters.apply_filter(doshuffle, typesize, blk)
-        streams = filtered.reshape(blk.shape[0] * nsplits, neblock)
-        slots, csizes, est_iters = _encode_grouped(streams, mod,
-                                                   min_cratio_x100, mine)
-        raw = csizes >= neblock
-        if min_bytes_per_iter:
-            raw |= est_iters > max(neblock // min_bytes_per_iter, 32)
-        csizes = torch.where(raw, neblock, csizes).to(I32)
-        slots[raw, :neblock] = streams[raw]
-        slots[raw, neblock:] = 0
-        return slots, csizes
+        def one_batch(blk):
+            filtered = filters.apply_filter(doshuffle, typesize, blk)
+            streams = filtered.reshape(blk.shape[0] * nsplits, neblock)
+            slots, csizes, est_iters = _encode_grouped(streams, mod,
+                                                       min_cratio_x100, mine)
+            raw = csizes >= neblock
+            if min_bytes_per_iter:
+                raw |= est_iters > max(neblock // min_bytes_per_iter, 32)
+            csizes = torch.where(raw, neblock, csizes).to(I32)
+            slots[raw, :neblock] = streams[raw]
+            slots[raw, neblock:] = 0
+            return slots, csizes
 
-    bpg = max(_ENCODE_GROUP_BYTES // blocksize, 1)
-    if nblocks <= bpg:
-        return one_batch(blocks)
-    pad = (-nblocks) % bpg
-    bp = torch.nn.functional.pad(blocks, (0, 0, 0, pad))
-    parts = [one_batch(bp[i:i + bpg]) for i in range(0, bp.shape[0], bpg)]
-    rows = nblocks * nsplits
-    return (torch.cat([p[0] for p in parts])[:rows],
-            torch.cat([p[1] for p in parts])[:rows])
+        bpg = max(_ENCODE_GROUP_BYTES // blocksize, 1)
+        if nblocks <= bpg:
+            return one_batch(blocks)
+        pad = (-nblocks) % bpg
+        bp = torch.nn.functional.pad(blocks, (0, 0, 0, pad))
+        parts = [one_batch(bp[i:i + bpg])
+                 for i in range(0, bp.shape[0], bpg)]
+        rows = nblocks * nsplits
+        return (torch.cat([p[0] for p in parts])[:rows],
+                torch.cat([p[1] for p in parts])[:rows])
 
 
 def decompress_blocks(
@@ -148,31 +155,37 @@ def decompress_blocks(
     and zstd walks' event budget (the byte API's retry for token-dense
     and event-dense chunks).
     """
-    dec = _decoder(compcode)
-    rows = slots.shape[0]
-    blocksize = neblock * nsplits
-    # stored-raw rule: csize == neblock marks a raw split (blosc.c:705-714);
-    # a compressed snappy split may exceed neblock (its maxout is
-    # 32 + n + n/6, blosc.c:640-645), so only equality marks it raw
-    if compcode == C.SNAPPY:
-        raw = csizes == neblock
-    else:
-        raw = csizes >= neblock
-    dec_cs = torch.where(raw, 0, csizes).to(I32)
-    # decode in 64 MB block groups to bound the workspace
-    group = max(_ENCODE_GROUP_BYTES // max(blocksize, 1), 1) * nsplits
-    outs, errs = [], []
-    for i in range(0, rows, group):
-        sl, cs, rw = slots[i:i + group], dec_cs[i:i + group], raw[i:i + group]
-        decoded, produced, err = dec(sl, cs, neblock, maxrec_hint)
-        streams = torch.where(rw[:, None], sl[:, :neblock], decoded)
-        errs.append(torch.where(rw, False, err | (produced != neblock)))
-        blk = streams.reshape(sl.shape[0] // nsplits, blocksize)
-        outs.append(filters.undo_filter(doshuffle, typesize, blk))
-    if not outs:
-        return (torch.zeros((0, blocksize), dtype=U8, device=slots.device),
-                torch.zeros(0, dtype=torch.bool, device=slots.device))
-    return torch.cat(outs), torch.cat(errs)
+    with trace.span("pipeline.decompress_blocks"):
+        trace.count("budget", maxrec_hint)
+        dec = _decoder(compcode)
+        rows = slots.shape[0]
+        blocksize = neblock * nsplits
+        # stored-raw rule: csize == neblock marks a raw split
+        # (blosc.c:705-714); a compressed snappy split may exceed neblock
+        # (its maxout is 32 + n + n/6, blosc.c:640-645), so only equality
+        # marks it raw
+        if compcode == C.SNAPPY:
+            raw = csizes == neblock
+        else:
+            raw = csizes >= neblock
+        dec_cs = torch.where(raw, 0, csizes).to(I32)
+        # decode in 64 MB block groups to bound the workspace
+        group = max(_ENCODE_GROUP_BYTES // max(blocksize, 1), 1) * nsplits
+        outs, errs = [], []
+        for i in range(0, rows, group):
+            sl, cs = slots[i:i + group], dec_cs[i:i + group]
+            rw = raw[i:i + group]
+            with trace.span("pipeline.decode_group"):
+                decoded, produced, err = dec(sl, cs, neblock, maxrec_hint)
+            streams = torch.where(rw[:, None], sl[:, :neblock], decoded)
+            errs.append(torch.where(rw, False, err | (produced != neblock)))
+            blk = streams.reshape(sl.shape[0] // nsplits, blocksize)
+            outs.append(filters.undo_filter(doshuffle, typesize, blk))
+        if not outs:
+            dev = slots.device
+            return (torch.zeros((0, blocksize), dtype=U8, device=dev),
+                    torch.zeros(0, dtype=torch.bool, device=dev))
+        return torch.cat(outs), torch.cat(errs)
 
 
 def decode_slot_width(neblock: int, compcode: int = C.BLOSCLZ) -> int:

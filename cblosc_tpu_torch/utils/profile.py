@@ -1,4 +1,5 @@
-"""Where the time goes: torch.profiler over the device pipeline.
+"""Where the time goes: torch.profiler over the device pipeline, read
+through the port's own spans (utils/trace.py).
 
 Run on a machine with an NVIDIA GPU, from the repository root:
 
@@ -24,11 +25,19 @@ zlib chunk of 4 MB synth (128 KB splits; the zlib walk
 runs twice, the default budget then the escalated one, as the byte API
 retries) and a clevel-5 zstd chunk of 4 MB synth (16 unsplit 256 KB
 blocks, each one zstd frame: the zstd walk and the expand kernel, once
-each). It prints one JSON line
-per call: the host wall time of the call (ending in a synchronize), the
-summed device time of its kernels, their share of the wall time (the
-device-busy share; the rest is idle, waiting on the host), and the top
-kernels by device time.
+each). It prints one JSON line per call: the host wall time of the call
+(ending in a synchronize), the card's busy time (the union of its
+kernels, copies and sets) and idle share over that wall time, the top
+kernels by device time, and for each span the call recorded, by name in
+the order they opened (``api.*`` roots, ``host_api.parse`` /
+``stage_in`` / ``err_check`` / ``fetch`` / ``assemble``,
+``pipeline.compress_blocks`` / ``decompress_blocks`` / ``gather`` /
+``encode_group`` / ``decode_group``, ``filters.apply`` / ``undo``,
+``codec.mine_group`` with ``mine.prefix`` / ``fold`` / ``verify``): how
+many, their self ms (less their child spans), the ms inside them in
+which the card ran nothing, and their counts (``h2d_bytes``,
+``d2h_bytes``, ``erred_rows``, ``retried_rows``, ``budget``,
+``route.*``).
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from .. import api
 from ..core import backend, engine, policy
 from ..format import constants as C
 from ..gpu import pipeline
+from . import trace
 from .timing import synth
 
 
@@ -100,15 +110,59 @@ def mined_inputs(fn) -> list:
     return seen
 
 
+def _busy(prof, t0: int, t1: int) -> list:
+    """The card's activity in [t0, t1] (host ns), as sorted disjoint
+    (start, end) intervals: the union of its kernels, copies and sets."""
+    from torch.autograd import DeviceType
+
+    ev = sorted((max(e.start_ns(), t0),
+                 min(e.start_ns() + e.duration_ns(), t1))
+                for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA)
+    out: list = []
+    for a, b in ev:
+        if b <= a:
+            continue
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _span_table(recs: list, busy: list) -> list:
+    """Per span name, in the order they opened: count, self ms, ms of the
+    card idle inside them, and summed counts."""
+    child_ns: dict = {}
+    for r in recs:
+        if r.parent >= 0:
+            child_ns[r.parent] = (child_ns.get(r.parent, 0)
+                                  + r.end_ns - r.start_ns)
+    rows: dict = {}
+    for r in recs:
+        row = rows.setdefault(r.name, {"span": r.name, "n": 0,
+                                       "self_ms": 0.0, "idle_ms": 0.0,
+                                       "counts": {}})
+        dur = r.end_ns - r.start_ns
+        on = sum(max(0, min(b, r.end_ns) - max(a, r.start_ns))
+                 for a, b in busy)
+        row["n"] += 1
+        row["self_ms"] += (dur - child_ns.get(r.index, 0)) / 1e6
+        row["idle_ms"] += (dur - on) / 1e6
+        for k, v in (r.counts or {}).items():
+            row["counts"][k] = row["counts"].get(k, 0) + v
+    return list(rows.values())
+
+
 def _profile(fn, label: str, card: str) -> dict:
     fn()                                           # warm up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        t1 = time.time_ns()
     from torch.autograd import DeviceType
 
     evts = [e for e in prof.key_averages()
@@ -116,13 +170,16 @@ def _profile(fn, label: str, card: str) -> dict:
     rows = [(e.key, _device_us(e), e.count) for e in evts]
     rows = [r for r in rows if r[1] > 0]
     rows.sort(key=lambda r: -r[1])
-    dev_us = sum(r[1] for r in rows)
+    busy = _busy(prof, t0, t1)
+    busy_ns = sum(b - a for a, b in busy)
+    wall = t1 - t0
     return {
-        "call": label, "card": card, "wall_ms": wall * 1e3,
-        "device_ms": dev_us / 1e3,
-        "device_busy_share": dev_us / 1e6 / wall if wall else None,
+        "call": label, "card": card, "wall_ms": wall / 1e6,
+        "device_busy_ms": busy_ns / 1e6,
+        "device_idle_share": 1 - busy_ns / wall if wall else None,
         "top": [{"kernel": k[:80], "ms": us / 1e3, "count": c}
                 for k, us, c in rows[:10]],
+        "spans": _span_table(trace.records(t0, t1), busy),
     }
 
 
