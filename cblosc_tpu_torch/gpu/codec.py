@@ -22,7 +22,9 @@ over that format, reproduced byte for byte:
     distance claim their positions before the static class, distances
     above 8191 take the far escape (blosclz.c:733-744). NORMAL rows are
     mined and emitted; HOPELESS rows are mined and emitted only where a
-    distance is adopted.
+    distance is adopted. On a CUDA tensor the miner is one launch of a
+    hand-written kernel (csrc/mine.cu); :func:`_mine_group_plain` is its
+    function in plain PyTorch, taken on a CPU tensor.
 
 The generic decoder accepts any blosclz stream. :func:`decode` launches
 the hand-written kernel (csrc/decode.cu, a CTA of three pipelined warps
@@ -245,34 +247,70 @@ def mine_group(s: torch.Tensor, d_row: torch.Tensor,
     (byte-scaled) is verified; a row adopts it when it covers at least
     n/6 positions and differs from the row's static distance.
 
+    On a CUDA tensor one launch of the mining kernel (csrc/mine.cu) does
+    all of it; on a CPU tensor :func:`_mine_group_plain` does. The span
+    counts the rows and the launches.
+
     Returns (d_m int64 (N,), 0 = not adopted; eq_m bool (N, n), empty on
     rows that adopt nothing)."""
     with trace.span("codec.mine_group"):
+        trace.count("rows", s.shape[0])
+        if not s.is_cuda:
+            return _mine_group_plain(s, d_row, max_d)
+        kernels.require(s, "s", U8, 2)
         N, n = s.shape
-        zero = torch.zeros(N, dtype=I64, device=s.device)
-        with trace.span("mine.prefix"):
-            if n >= 1024:
-                dp, hp = _mine_distance(s[:, :min(n, _MINE_PREFIX)])
-            else:
-                dp = hp = zero
-        FG = _fold_g(n)
-        with trace.span("mine.fold"):
-            if n >= 32768 and n % FG == 0:
-                dg, hg = _mine_distance(_fold(s, FG), 1, max_d // FG)
-                dg = dg * FG
-                dg = torch.where(dg < n, dg, 0)
-                # hits count FG-byte groups
-                hg = torch.where(dg > 0, hg * FG, 0)
-            else:
-                dg = hg = zero
-        with trace.span("mine.verify"):
-            dp = torch.where(dp <= max_d, dp, 0)
-            hp = torch.where(dp > 0, hp, 0)
-            d = torch.where(hg > hp, dg, dp)
-            eq_m = _eq_at(s, torch.clamp(d, min=1))
-            cov = torch.where(d > 0, eq_m.sum(dim=1), -1)
-            adopt = (cov >= n // 6) & (d > 0) & (d != d_row.reshape(-1))
-            return torch.where(adopt, d, 0), eq_m & adopt[:, None]
+        d_row = d_row.reshape(-1)
+        if (d_row.numel() != N or d_row.device != s.device
+                or d_row.dtype not in (torch.int32, I64)):
+            raise ValueError("d_row must hold N int32 or int64 values on "
+                             "the rows' device")
+        if not 0 <= max_d <= MAX_FARDIST:
+            raise ValueError(f"max_d {max_d} outside [0, {MAX_FARDIST}]")
+        d_row = d_row.contiguous()
+        d_m = torch.empty(N, dtype=I64, device=s.device)
+        eq_m = torch.empty((N, n), dtype=torch.bool, device=s.device)
+        if N == 0:
+            return d_m, eq_m
+        per_row = kernels.fn("mine.scratch_bytes")(n)
+        scratch = (torch.empty(N * per_row, dtype=U8, device=s.device)
+                   if per_row else None)
+        code = kernels.fn("mine")(
+            s.data_ptr(), N, n, d_row.data_ptr(), int(d_row.dtype == I64),
+            max_d, None if scratch is None else scratch.data_ptr(), per_row,
+            d_m.data_ptr(), eq_m.data_ptr(), kernels.stream_ptr(s))
+        kernels.check("mine", code)
+        trace.count("launches", 1)
+        return d_m, eq_m
+
+
+def _mine_group_plain(s: torch.Tensor, d_row: torch.Tensor,
+                      max_d: int = MAX_FARDIST):
+    """:func:`mine_group` in plain PyTorch, the mining kernel's function."""
+    N, n = s.shape
+    zero = torch.zeros(N, dtype=I64, device=s.device)
+    with trace.span("mine.prefix"):
+        if n >= 1024:
+            dp, hp = _mine_distance(s[:, :min(n, _MINE_PREFIX)])
+        else:
+            dp = hp = zero
+    FG = _fold_g(n)
+    with trace.span("mine.fold"):
+        if n >= 32768 and n % FG == 0:
+            dg, hg = _mine_distance(_fold(s, FG), 1, max_d // FG)
+            dg = dg * FG
+            dg = torch.where(dg < n, dg, 0)
+            # hits count FG-byte groups
+            hg = torch.where(dg > 0, hg * FG, 0)
+        else:
+            dg = hg = zero
+    with trace.span("mine.verify"):
+        dp = torch.where(dp <= max_d, dp, 0)
+        hp = torch.where(dp > 0, hp, 0)
+        d = torch.where(hg > hp, dg, dp)
+        eq_m = _eq_at(s, torch.clamp(d, min=1))
+        cov = torch.where(d > 0, eq_m.sum(dim=1), -1)
+        adopt = (cov >= n // 6) & (d > 0) & (d != d_row.reshape(-1))
+        return torch.where(adopt, d, 0), eq_m & adopt[:, None]
 
 
 def _segment(eq: torch.Tensor, min_len, idx: torch.Tensor):

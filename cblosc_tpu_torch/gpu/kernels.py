@@ -33,13 +33,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> source file
 SOURCES = {"expand": "expand.cu", "walk": "walk.cu", "decode_one": "decode.cu",
            "lz4_walk": "lz4_walk.cu", "snappy_walk": "snappy_walk.cu",
-           "zlib_walk": "zlib_walk.cu", "zstd_walk": "zstd_walk.cu"}
+           "zlib_walk": "zlib_walk.cu", "zstd_walk": "zstd_walk.cu",
+           "mine": "mine.cu"}
 
 LAUNCHES = {name: 0 for name in SOURCES}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures (argtypes) of each entry point; restype is int
+_LL = ctypes.c_longlong
+# C signatures (argtypes, then restype where it is not int) of each entry
+# point, by kernel name; "<kernel>.<what>" names a helper of its library
 # the three walks share one signature (structured.launch_walk); the LZ4
 # walk adds its look-back scratch, the scratch's bytes and the launch's
 # epoch before the stream
@@ -51,7 +54,7 @@ _SIGS = {
     "walk": ("walk_launch", _WALK),
     "decode_one": ("decode_launch", [_P, _I, _I, _P, _I, _P, _P, _P, _P]),
     "lz4_walk": ("lz4_walk_launch",
-                 _WALK[:-1] + [_P, ctypes.c_longlong, ctypes.c_uint, _P]),
+                 _WALK[:-1] + [_P, _LL, ctypes.c_uint, _P]),
     "snappy_walk": ("snappy_walk_launch", _WALK),
     # the zlib walk also writes the literal tape and its length
     "zlib_walk": ("zlib_walk_launch", _WALK[:6] + [_P, _P] + _WALK[6:]),
@@ -59,6 +62,11 @@ _SIGS = {
     # arg, dst, len, ok, stats, stream
     "zstd_walk": ("zstd_walk_launch", [_P, _I, _I, _P, _I, _I, _I, _P, _P,
                                        _P, _P, _P, _P, _P, _P, _P]),
+    # the miner: s, N, n, d_row, d_row is int64, max_d, scratch, scratch
+    # bytes a row, d_m, eq_m, stream
+    "mine": ("mine_launch", [_P, _I, _LL, _P, _I, _I, _P, _LL, _P, _P, _P]),
+    # bytes of global scratch a row of n bytes needs in the miner
+    "mine.scratch_bytes": ("mine_scratch_bytes", [_LL], _LL),
 }
 
 _lock = threading.Lock()
@@ -120,11 +128,11 @@ def build_all() -> dict:
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("kernel build failed\n" + "\n".join(failed))
-        for name, so in todo.items():
-            sym, argtypes = _SIGS[name]
-            fn = getattr(ctypes.CDLL(str(so)), sym)
+        dlls = {name: ctypes.CDLL(str(so)) for name, so in todo.items()}
+        for name, (sym, argtypes, *restype) in _SIGS.items():
+            fn = getattr(dlls[name.split(".")[0]], sym)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = restype[0] if restype else ctypes.c_int
             _libs[name] = fn
         return _libs
 

@@ -33,11 +33,11 @@ the order they opened (``api.*`` roots, ``host_api.parse`` /
 ``stage_in`` / ``err_check`` / ``fetch`` / ``assemble``,
 ``pipeline.compress_blocks`` / ``decompress_blocks`` / ``gather`` /
 ``encode_group`` / ``decode_group``, ``filters.apply`` / ``undo``,
-``codec.mine_group`` with ``mine.prefix`` / ``fold`` / ``verify``): how
-many, their self ms (less their child spans), the ms inside them in
-which the card ran nothing, and their counts (``h2d_bytes``,
-``d2h_bytes``, ``erred_rows``, ``retried_rows``, ``budget``,
-``route.*``).
+``codec.mine_group``, with ``mine.prefix`` / ``fold`` / ``verify`` on
+the CPU only): how many, their self ms (less their child spans), the ms
+inside them in which the card ran nothing, and their counts
+(``h2d_bytes``, ``d2h_bytes``, ``erred_rows``, ``retried_rows``,
+``budget``, ``route.*``, ``rows`` and ``launches``).
 """
 
 from __future__ import annotations

@@ -38,8 +38,9 @@ Spans (``<module>.<phase>``), from the byte API down:
   ``budget``: 0 at the codec's default, else the escalated one),
   ``pipeline.gather``, ``pipeline.encode_group``,
   ``pipeline.decode_group``, ``filters.apply``, ``filters.undo``;
-- ``codec.mine_group`` with ``mine.prefix``, ``mine.fold`` and
-  ``mine.verify``.
+- ``codec.mine_group``: counts ``rows`` and, on the card, ``launches``
+  (1: the mining kernel); on the CPU it holds ``mine.prefix``,
+  ``mine.fold`` and ``mine.verify``, the plain version's stages.
 
 Bytes are counted from tensors' ``nbytes``, the same on the CPU as on
 the card. ``utils/profile.py`` prints these records per profiled call.

@@ -74,7 +74,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      generated frame up to 128 KB, to libzstd's bytes. It is timed on the
      clevel-5 chunk's 16 live rows at the default budget, with the
      sequences of its longest row (the kernel's stats output) and the ns
-     a sequence;
+     a sequence. The mining kernel (mine) is held to the plain version
+     (gpu.codec._mine_group_plain, on the card) and timed on every
+     mine_group call one compress makes of a 4 MB synth chunk (sbits 19,
+     typesize 8, shuffle) in each write cell's geometry: python-blosc's
+     blosclz at clevel 9 (16 splits of 256 KB) and numcodecs' LZ4 at
+     clevel 5 (32 splits of 128 KB; the "lz4_*" keys), per chunk; those
+     rows adopt no distance, so each call is held again on rows of its
+     shape that adopt (periodic rows and a staircase), some of which must;
   3. the main path: byte-API round trips (compress_ctx/decompress_ctx)
      on 4 MB buffers at clevel 1 (blosclz, lz4, lz4hc) plus a clevel-9
      blosclz, a clevel-5 LZ4, a snappy chunk, zlib chunks and zstd
@@ -90,7 +97,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      path alone, the arange chunks by walk and expand, the LZ4 chunks by
      the LZ4 walk); every launch counter is zeroed just before
      each decode and read just after it, the phase's launches are their
-     sum, and each kernel must have launched; then the
+     sum with the mining kernel's launches by the card's compress of
+     those chunks, and each kernel must have launched; then the
      clevel-9 chunk's decode is timed warm (CUDA events, median of 5);
      then getitem (api.getitem and gpu.host_api.getitem) on the card on
      the main-path 4 MB blosclz clevel-1 synth chunk, the card-written
@@ -121,8 +129,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      of its first decode (the int32 arange decode must launch the walk
      and expand kernels, the LZ4 synth decode the LZ4 walk); the same for
      128 MB of synth at clevels 5 and 9 (128 KB and 256 KB splits,
-     compress_blocks(mine=True)), with mine_group timed alone on the
-     streams the compress call mines; and 128 MB
+     compress_blocks(mine=True)), with mine_group (the mining kernel)
+     timed alone on the streams the compress call mines, its plain
+     version beside it; and 128 MB
      of synth in zlib chunks written by the host engine at clevel 5
      (host time printed as such), all their rows decoded by
      decompress_blocks at the escalated budget, verified and timed the
@@ -675,6 +684,105 @@ def phase_codec_walks(dev, chunk_bytes, snappy_chunk, lz4_chunk, reps):
           f"plain {r['long_plain_ms']:.4f} ms (on the host); bound "
           f"{r['long_bound_ms']:.6f} ms")
     return out
+
+
+def _write_geometry(code, clevel, typesize, chunk_bytes):
+    """(blocksize, nsplits) of the card's compress at clevel."""
+    from cblosc_tpu_torch.core import policy
+
+    bs = policy.compute_blocksize_device(clevel, typesize, chunk_bytes)
+    return bs, policy.nsplits_encode(
+        not policy.split_block(code, typesize, bs), typesize, False)
+
+
+def _adopting_rows(N, n, seed):
+    """N rows of n bytes that the miners find and adopt distances in:
+    random bytes repeating at periods 6, 4,000, 9,000 (the far form) and
+    64,000 (the fold miner's range), a staircase of 128-byte steps, and
+    a random row, in turn."""
+    rng = np.random.default_rng(seed)
+
+    def tiled(period):
+        return np.tile(rng.integers(0, 256, period, np.uint8),
+                       n // period + 1)[:n]
+
+    kinds = [lambda: tiled(6), lambda: tiled(4000), lambda: tiled(9000),
+             lambda: tiled(64000),
+             lambda: (np.arange(n) // 128 % 256).astype(np.uint8),
+             lambda: rng.integers(0, 256, n, np.uint8)]
+    return np.stack([kinds[i % len(kinds)]() for i in range(N)])
+
+
+def phase_mine(dev, chunk_bytes, reps) -> dict:
+    """The mining kernel on the streams each write cell mines: every
+    gpu.codec.mine_group call that one compress_blocks of a 4 MB synth
+    chunk makes at python-blosc's defaults (blosclz, clevel 9) and at
+    numcodecs' (LZ4, clevel 5), held to the plain version on the card and
+    timed per chunk (all of the chunk's calls). The synth rows adopt no
+    distance, so each call is also held to the plain version on rows of
+    its shape, d_row and max_d that adopt (_adopting_rows), and some of
+    them must. Bound: each row read once and its eq_m written once."""
+    from cblosc_tpu_torch.core import policy
+    from cblosc_tpu_torch.format import constants as C
+    from cblosc_tpu_torch.gpu import codec, pipeline
+    from cblosc_tpu_torch.utils.profile import mined_inputs
+    from cblosc_tpu_torch.utils.timing import synth
+
+    data = synth(chunk_bytes, 8, 19)
+    out = {}
+    for prefix, code, clevel in (("", C.BLOSCLZ, 9), ("lz4_", C.LZ4, 5)):
+        bs, nsplits = _write_geometry(code, clevel, 8, chunk_bytes)
+        x = torch.from_numpy(data.reshape(-1, bs).copy()).to(dev)
+        seen = mined_inputs(lambda: pipeline.compress_blocks(
+            x, C.SHUFFLE, 8, nsplits, policy.device_min_bytes_per_iter(clevel),
+            code, policy.device_min_cratio_x100(clevel), True))
+        check(bool(seen), f"mine: the {C.COMPNAMES[code]} compress mined "
+                          "nothing")
+        adopting = [(torch.from_numpy(_adopting_rows(*s.shape, i)).to(dev),
+                     d_row, max_d) for i, (s, d_row, max_d) in enumerate(seen)]
+
+        def kernel(seen=seen):
+            return [codec.mine_group(*a) for a in seen]
+
+        def plain(seen=seen):
+            return [codec._mine_group_plain(*a) for a in seen]
+
+        got = kernel()
+        got_a = kernel(adopting)
+        err = max(_maxdiff(k, p) for k, p in
+                  zip(got + got_a, plain() + plain(adopting)))
+        check(err == 0, f"mine kernel differs from its plain version ({err})")
+        adopted = sum(int((k[0] > 0).sum()) for k in got)
+        adopted_a = sum(int((k[0] > 0).sum()) for k in got_a)
+        check(adopted_a > 0, f"mine: no {C.COMPNAMES[code]} row of "
+                             "_adopting_rows adopted a distance")
+        rows = sum(a[0].shape[0] for a in seen)
+        nbytes = sum(2 * a[0].numel() + 8 * a[0].shape[0] for a in seen)
+        # per chunk: the profiler times one launch, the events all of them
+        device_ms, source = _device_ms(dev, kernel, "mine_kernel")
+        if source == "profiler":
+            device_ms *= len(seen)
+        print(f"mine inputs, {C.COMPNAMES[code]} clevel {clevel}: "
+              f"{len(seen)} calls, {rows} rows of {seen[0][0].shape[1]} B "
+              f"(max_d {seen[0][2]}, d_row {seen[0][1].dtype}), {adopted} "
+              f"adopt a distance; the same shapes of _adopting_rows: "
+              f"{adopted_a} of {rows} adopt, equal to the plain version")
+        out.update({
+            f"{prefix}max_abs_err": err,
+            f"{prefix}ms": _ms(dev, kernel, reps),
+            f"{prefix}device_ms": device_ms,
+            f"{prefix}device_ms_source": f"{source}, per chunk",
+            f"{prefix}call_ms": _ms(dev, kernel, reps, batch=BATCH),
+            f"{prefix}plain_ms": _ms(dev, plain, reps),
+            f"{prefix}plain_on": "card" if dev.type == "cuda" else "cpu",
+            f"{prefix}bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            f"{prefix}calls": len(seen), f"{prefix}rows": rows,
+            f"{prefix}adopting_rows_adopted": adopted_a})
+    out["max_abs_err"] = max(out["max_abs_err"], out["lz4_max_abs_err"])
+    print_kernel("mine (blosclz clevel 9, per chunk)", out)
+    print_kernel("mine (LZ4 clevel 5, per chunk)",
+                 {k[4:]: v for k, v in out.items() if k.startswith("lz4_")})
+    return {"mine": out}
 
 
 def _lz4_chunk5(dev, lz4_chunk, reps) -> dict:
@@ -1414,8 +1522,9 @@ def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks,
     decline (the JAX package's bridge declines them too), decoded by the
     byte API on the host engine; ratio_chunks: [(label, data, chunk
     written by the card, chunk written by the port on the CPU, kernels
-    its decode must launch)] at clevels 5 and 9, each chunk equal to the
-    CPU's and decoded through gpu.host_api on the card."""
+    its decode must launch, launches of the mining kernel by its
+    compress)] at clevels 5 and 9, each chunk equal to the CPU's and
+    decoded through gpu.host_api on the card."""
     import cblosc_tpu_torch as tb
     from cblosc_tpu_torch.core import engine
     from cblosc_tpu_torch.format import constants as C
@@ -1484,7 +1593,8 @@ def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks,
         print(f"byte api {label}: {len(data)} B <- {len(chunk)} B decoded "
               f"on {dev.type} in {td:.3f} s (host clock, first call); "
               f"decompress launches {delta}")
-    for label, data, chunk, cpu_chunk, need in ratio_chunks:
+    for label, data, chunk, cpu_chunk, need, mined in ratio_chunks:
+        totals["mine"] += mined
         check(chunk == cpu_chunk, f"{label}: the card's chunk differs from "
               "the port's device='cpu' chunk of the same buffer")
         r, td, delta = device_decode(label, chunk, need)
@@ -1495,7 +1605,8 @@ def phase_byte_api(dev, chunk_bytes, low, host_chunk, codec_chunks,
               f"{label}: host engine cannot decode the card's chunk")
         print(f"byte api {label}: {len(data)} B -> {len(chunk)} B (ratio "
               f"{len(data) / len(chunk):.4f}) written on {dev.type}, equal "
-              f"to the CPU's chunk; decompress {td:.3f} s (host clock, first "
+              f"to the CPU's chunk, its compress launching the mining kernel "
+              f"{mined} times; decompress {td:.3f} s (host clock, first "
               f"call); decompress launches {delta}")
     for label, data, chunk in host_only:
         r, delta = count(lambda: host_api.decompress_chunk(chunk, None, dev))
@@ -1866,17 +1977,15 @@ def phase_bench(dev, label, data, typesize, chunk_bytes, reps, card,
     codec `code` (blosclz by default) at `clevel`'s device geometry and
     policies. The launch counters are zeroed just before the first decode
     and read just after it; each kernel named in need must have launched.
-    At the ratio clevels mine_group is also timed alone, on the streams
-    that the compress call mines (recorded from one call), in the same
-    groups."""
+    At the ratio clevels mine_group (the mining kernel) is also timed
+    alone, on the streams that the compress call mines (recorded from one
+    call), in the same groups, and its plain version beside it."""
     from cblosc_tpu_torch.core import policy
     from cblosc_tpu_torch.format import constants as C
     from cblosc_tpu_torch.gpu import codec, kernels, pipeline
 
     code = C.BLOSCLZ if code is None else code
-    bs = policy.compute_blocksize_device(clevel, typesize, chunk_bytes)
-    nsplits = policy.nsplits_encode(
-        not policy.split_block(code, typesize, bs), typesize, False)
+    bs, nsplits = _write_geometry(code, clevel, typesize, chunk_bytes)
     neblock = bs // nsplits
     x = torch.from_numpy(data.reshape(-1, bs).copy()).to(dev)
     total = x.numel()
@@ -1916,7 +2025,10 @@ def phase_bench(dev, label, data, typesize, chunk_bytes, reps, card,
         seen = mined_inputs(comp)
         check(bool(seen), f"bench {label}: compress mined nothing")
         tm = _ms(dev, lambda: [codec.mine_group(*a) for a in seen], reps)
-        extra = {"mine_group_ms": tm, "mine_group_share": tm / tc,
+        tp = _ms(dev, lambda: [codec._mine_group_plain(*a) for a in seen],
+                 reps)
+        extra = {"mine_group_ms": tm, "mine_group_plain_ms": tp,
+                 "mine_group_share": tm / tc,
                  "mine_group_calls": len(seen),
                  "mined_rows": sum(a[0].shape[0] for a in seen),
                  "rows": cs.numel(), "neblock": neblock}
@@ -2019,11 +2131,12 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
                  "lz4 uint8 staircase ts1": ("lz4", st, 1)}
     ratio_chunks, chunks5 = [], {}
     t_card = t_cpu = 0.0
+    write_launches = dict.fromkeys(kernels.LAUNCHES, 0)
     for clevel in (5, 9):
         for name, (comp, d, ts) in ratio_src.items():
             t0 = time.perf_counter()
-            card_c = tb.compress_ctx(clevel, C.SHUFFLE, ts, d,
-                                     compressor=comp, device=dev)
+            card_c, wl = counted(write_launches, lambda: tb.compress_ctx(
+                clevel, C.SHUFFLE, ts, d, compressor=comp, device=dev))
             t1 = time.perf_counter()
             cpu_c = tb.compress_ctx(clevel, C.SHUFFLE, ts, d,
                                     compressor=comp, device="cpu")
@@ -2036,7 +2149,7 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
                     ("lz4_walk", "expand") if "staircase" in name else
                     ("lz4_walk",))
             ratio_chunks.append((f"{name} clevel {clevel}", d, card_c, cpu_c,
-                                 need))
+                                 need, wl["mine"]))
             if clevel == 5:
                 chunks5[name] = card_c
     print(f"clevel-5/9 chunks of 4 MB: {len(ratio_chunks)} written on "
@@ -2052,6 +2165,8 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
     stats.update(phase_codec_walks(dev, chunk_bytes, snappy_chunk, lz4_chunk,
                                    reps))
     stamp("phase 2: lz4_walk, snappy_walk held and timed")
+    stats.update(phase_mine(dev, chunk_bytes, reps))
+    stamp("phase 2: mine held and timed")
     for name, e in phase_ratio_rows(dev, chunks5, reps).items():
         stats[name]["max_abs_err"] = max(
             stats[name]["max_abs_err"],
@@ -2144,7 +2259,9 @@ def run(dev, chunk_bytes=CHUNK, workset=WORKSET, reps=5):
            "zlib_walk": ("cblosc_tpu_torch/csrc/zlib_walk.cu",
                          "cblosc_tpu/tpu/codec_zlib.py:143"),
            "zstd_walk": ("cblosc_tpu_torch/csrc/zstd_walk.cu",
-                         "cblosc_tpu/tpu/codec_zstd.py:242")}
+                         "cblosc_tpu/tpu/codec_zstd.py:242"),
+           "mine": ("cblosc_tpu_torch/csrc/mine.cu",
+                    "cblosc_tpu/tpu/codec.py:346")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": counts[name],

@@ -317,3 +317,133 @@ def test_ratio_clevel_chunk_on_card_equals_cpu(cuda, compressor, clevel):
     assert got == tb.compress_ctx(clevel, C.SHUFFLE, 8, _MIXED,
                                   compressor=compressor, device="cpu")
     assert tb.decompress_ctx(got, device=cuda) == _MIXED
+
+
+# ---------------------------------------------------------------------------
+# on the card: the mining kernel equals the plain version
+# ---------------------------------------------------------------------------
+
+def _mine_kernel_rows(n, N):
+    """N rows of n bytes, the same on every call of (n, N): this file's
+    edge rows (the tie, 0xFF grams, periods 6, 4,000, 9,000 (far form)
+    and 70,000 (above the LZ4 cap), the staircase) in turn with random
+    rows."""
+    rng = np.random.default_rng((n, N))
+    edge = [_tie_row(max(n, 2048))[:n], _ff_row(n), _tiled(11, 6, n),
+            _tiled(12, 4000, n), _tiled(13, 9000, n), _tiled(14, 70000, n),
+            _staircase(n)]
+    k = len(edge) + 2
+    return np.stack([edge[i % k] if i % k < len(edge)
+                     else rng.integers(0, 256, n, np.uint8)
+                     for i in range(N)])
+
+
+def _mine_kernel_inputs(n, N, max_d):
+    """[(rows, d_row, rows where the static distance is the mined one)]
+    of one kernel case, the same on every call: N rows (N = 1: each of
+    nine rows alone), first with d_row 1, then with the plain version's
+    mined distance as d_row on every other row. d_row is int32 at the
+    LZ4 cap, int64 at blosclz's, as the encoders pass it."""
+    S = _mine_kernel_rows(n, 9 if N == 1 else N)
+    dtype = torch.int32 if max_d == 0xFFFF else torch.int64
+    out = []
+    for B in [S[i:i + 1] for i in range(9)] if N == 1 else [S]:
+        ones = torch.ones((B.shape[0], 1), dtype=dtype)
+        dm = tc._mine_group_plain(torch.from_numpy(B), ones, max_d)[0]
+        if n >= 4096 and B.shape[0] >= 7:
+            assert (dm > 0).any()
+        same = (torch.arange(B.shape[0]) % 2 == 0) & (dm > 0)
+        out += [(B, ones, torch.zeros_like(same)),
+                (B, torch.where(same[:, None], dm.to(dtype)[:, None], ones),
+                 same)]
+    return out
+
+
+def _mine_kernel_case(cuda, n, N, max_d, offset):
+    from cblosc_tpu_torch.gpu import kernels
+
+    inputs = _mine_kernel_inputs(n, N, max_d)
+    before = kernels.LAUNCHES["mine"]
+    for B, dr, same in inputs:
+        s = torch.from_numpy(B)
+        want = tc._mine_group_plain(s, dr, max_d)
+        # nothing may be adopted where the static distance is the mined one
+        assert not want[0][same].any() and not want[1][same].any()
+        # offset: every row starts one byte past a 16-byte boundary
+        on = torch.empty(s.numel() + offset, dtype=torch.uint8,
+                         device=cuda)[offset:].view(s.shape).copy_(s)
+        got = tc.mine_group(on, dr.to(cuda), max_d)
+        assert got[0].dtype == torch.int64 and got[1].dtype == torch.bool
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+    assert kernels.LAUNCHES["mine"] - before == len(inputs)
+
+
+def _mine_kernel_raises(cuda, bad):
+    from cblosc_tpu_torch.gpu import kernels
+
+    s = {"dtype": torch.zeros((4, 2048), dtype=torch.int16, device=cuda),
+         "ndim": torch.zeros(2048, dtype=torch.uint8, device=cuda),
+         "stride": torch.zeros((4, 4096), dtype=torch.uint8,
+                               device=cuda)[:, ::2]}[bad]
+    before = kernels.LAUNCHES["mine"]
+    with pytest.raises(ValueError):
+        tc.mine_group(s, torch.ones((4, 1), dtype=torch.int64, device=cuda))
+    assert kernels.LAUNCHES["mine"] == before
+
+
+def _mine_id(n, N, max_d, offset=0):
+    cap = 'far' if max_d == tc.MAX_FARDIST else 'u16'
+    return f"n{n}-N{N}-{cap}" + (f"-offset{offset}" if offset else "")
+
+
+_MINE_KERNEL_CASES = [
+    pytest.param(n, N, max_d, 0, id=_mine_id(n, N, max_d))
+    for n in (512, 1024, 2000, 2001, 4096, 4099, 40000, 40001, 65536,
+              131072, 262144, 524288)
+    for N in (1, 8, 40)
+    for max_d in (tc.MAX_FARDIST, 0xFFFF)
+] + [pytest.param(n, 8, tc.MAX_FARDIST, 1, id=_mine_id(n, 8, tc.MAX_FARDIST, 1))
+     for n in (65536, 262144, 524288)
+] + [pytest.param(bad, None, None, 0, id=f"raises-{bad}")
+     for bad in ("dtype", "ndim", "stride")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,N,max_d,offset", _MINE_KERNEL_CASES)
+def test_mine_kernel_matches_plain(cuda, n, N, max_d, offset):
+    """The kernel's (d_m, eq_m) equal the plain version's byte for byte
+    (rows of 512 B to 512 KB: each of the kernel's sorts, lengths that
+    are not multiples of 16, so that rows after the first start off a
+    16-byte boundary, rows one byte past one in every case of the
+    offset, the 512 KB row's fold through the kernel's global scratch;
+    1, 8 and 40 rows; the blosclz and LZ4 caps; static distances equal to
+    the mined one); one launch a call; a bad input raises and launches
+    nothing. The JAX package does not run on the card: the plain version
+    is held to it on the same rows by
+    test_mine_group_plain_matches_jax_on_kernel_rows."""
+    if isinstance(n, str):
+        _mine_kernel_raises(cuda, n)
+    else:
+        _mine_kernel_case(cuda, n, N, max_d, offset)
+
+
+@pytest.mark.parametrize("n,N,max_d", [
+    pytest.param(n, N, max_d, id=_mine_id(n, N, max_d))
+    for n, N, max_d in ((2001, 8, 0xFFFF), (4099, 8, tc.MAX_FARDIST),
+                        (40001, 8, 0xFFFF), (131072, 40, 0xFFFF),
+                        (262144, 8, tc.MAX_FARDIST),
+                        (262144, 40, tc.MAX_FARDIST),
+                        (524288, 8, tc.MAX_FARDIST), (524288, 40, 0xFFFF))])
+def test_mine_group_plain_matches_jax_on_kernel_rows(n, N, max_d):
+    """The plain version, which the card test holds the kernel to, equals
+    the JAX package's mine_group on the card test's rows: lengths that
+    are not multiples of 16, 40 rows, the blosclz c9 cell's 256 KB rows,
+    the kernel's global-scratch length, int32 and int64 d_row, and
+    d_row equal to the mined distance."""
+    for B, dr, _ in _mine_kernel_inputs(n, N, max_d):
+        want = jc.mine_group(jnp.asarray(B),
+                             jnp.asarray(dr.numpy().astype(np.int32)), max_d)
+        got = tc.mine_group(torch.from_numpy(B), dr, max_d)
+        assert np.array_equal(np.asarray(want[0]), got[0].numpy())
+        assert np.array_equal(np.asarray(want[1]), got[1].numpy())

@@ -94,6 +94,10 @@ def test_round_trip_spans_nest_and_count_the_copies(compressor, clevel):
                      "pipeline.encode_group", "pipeline.decode_group",
                      "filters.apply", "filters.undo", "codec.mine_group",
                      "mine.prefix", "mine.fold", "mine.verify"}
+    # the miner counts its rows; on the CPU it launches nothing
+    mined = [r for r in recs if r.name == "codec.mine_group"]
+    assert all(r.counts["rows"] > 0 and "launches" not in r.counts
+               for r in mined)
 
     hdr, nfull, nsplits = _geometry(chunk)
     rows = nfull * nsplits
