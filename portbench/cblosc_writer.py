@@ -1,10 +1,14 @@
 """Build, load and call the frozen C-blosc-format writer (``writer/``).
 
-The sources compile with ``g++`` on first use into
-``build/portbench_writer/<hash>/`` under the checkout, where the hash
-covers the sources and the flags, so only a checkout's first run builds.
-The build runs under a file lock and lands by ``os.replace``, so runs
-that start together build once. It imports nothing of the program.
+Every ``.cc`` source of ``writer/`` compiles with ``g++`` on first use
+into ``build/portbench_writer/<hash>/`` under the checkout, where the
+hash covers the sources, the flags and the link flags, so only a
+checkout's first run builds. A source that needs a system library names
+it on a line of its own, ``// portbench-writer-link: <flags>``. The
+codecs and filters are those the sources register (``writer/registry.h``),
+by the configuration's names. The build runs under a file lock and lands
+by ``os.replace``, so runs that start together build once. It imports
+nothing of the program.
 """
 
 from __future__ import annotations
@@ -18,19 +22,30 @@ from pathlib import Path
 
 import numpy as np
 
-from .traffic import SHUFFLES
-
 SRC = Path(__file__).resolve().parent / "writer"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / "portbench_writer"
-SOURCES = ("filters.cc", "lz4.cc", "writer.cc")
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-Wall")
-CODES = {"lz4": 1, "lz4hc": 2}
+LINK_MARK = "// portbench-writer-link:"
 
 _lib = None
 
 
+def sources() -> list[Path]:
+    return sorted(SRC.glob("*.cc"))
+
+
+def link_flags() -> list[str]:
+    """What the sources ask to be linked against, in source order."""
+    flags = []
+    for f in sources():
+        for line in f.read_text().splitlines():
+            if line.startswith(LINK_MARK):
+                flags += line[len(LINK_MARK):].split()
+    return flags
+
+
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h = hashlib.sha256(" ".join(CXX_FLAGS + tuple(link_flags())).encode())
     for f in sorted(SRC.iterdir()):
         if f.suffix in (".cc", ".h"):
             h.update(f.name.encode())
@@ -52,7 +67,7 @@ def build(root=BUILD_ROOT) -> Path:
             return so
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = ["g++", *CXX_FLAGS, "-o", str(tmp),
-               *(str(SRC / s) for s in SOURCES)]
+               *(str(s) for s in sources()), *link_flags()]
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         if res.returncode != 0:
             tmp.unlink(missing_ok=True)
@@ -69,10 +84,23 @@ def _load():
         u8p = ctypes.POINTER(ctypes.c_uint8)
         lib.pbw_compress_chunk.restype = ctypes.c_int64
         lib.pbw_compress_chunk.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int64,
-            u8p, ctypes.c_int64, ctypes.c_int]
+            ctypes.c_int, ctypes.c_char_p, ctypes.c_int, u8p, ctypes.c_int64,
+            u8p, ctypes.c_int64, ctypes.c_char_p]
+        for names in (lib.pbw_codec_names, lib.pbw_filter_names):
+            names.restype = ctypes.c_char_p
+            names.argtypes = []
         _lib = lib
     return _lib
+
+
+def codecs() -> set[str]:
+    """The cnames the writer's sources register."""
+    return set(_load().pbw_codec_names().decode().split(","))
+
+
+def filters() -> set[str]:
+    """The shuffle names the writer's sources register."""
+    return set(_load().pbw_filter_names().decode().split(","))
 
 
 def compress(clevel: int, shuffle: str, typesize: int, data: bytes,
@@ -84,8 +112,14 @@ def compress(clevel: int, shuffle: str, typesize: int, data: bytes,
     dest = np.empty(src.size + 16, dtype=np.uint8)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     n = lib.pbw_compress_chunk(
-        clevel, SHUFFLES[shuffle], typesize, src.ctypes.data_as(u8p),
-        src.size, dest.ctypes.data_as(u8p), dest.size, CODES[cname])
+        clevel, shuffle.encode(), typesize, src.ctypes.data_as(u8p),
+        src.size, dest.ctypes.data_as(u8p), dest.size, cname.encode())
+    if n == -2:
+        raise ValueError(f"the writer holds no codec {cname!r}: it holds "
+                         f"{sorted(codecs())}")
+    if n == -3:
+        raise ValueError(f"the writer holds no filter {shuffle!r}: it "
+                         f"holds {sorted(filters())}")
     if n <= 0:
         raise RuntimeError(f"writer failed (code {n})")
     return dest[:n].tobytes()

@@ -36,7 +36,7 @@ import time
 
 import numpy as np
 
-from . import reference, traffic
+from . import codecs, reference, traffic
 
 
 class Checker:
@@ -86,17 +86,19 @@ def decoded_wrong(chunk: bytes, due: bytes) -> int:
 
 
 def header_wrong(chunk, config: dict, nbytes: int) -> bool:
+    """Whether a chunk's header names another codec, filter, typesize or
+    size than the configuration's (any codec where it is memcpyed)."""
     c = config["codec"]
     try:
         h = reference.header(chunk)
     except reference.ChunkError:
         return True
-    wire = {"lz4hc": "lz4"}.get(c["cname"], c["cname"])
+    wire = codecs.BY_CNAME.get(c["cname"])
     return (h["version"] != 2 or h["nbytes"] != nbytes
             or h["typesize"] != c["typesize"]
-            or h["shuffle"] != (c["shuffle"] == "SHUFFLE")
-            or h["bitshuffle"] != (c["shuffle"] == "BITSHUFFLE")
-            or (not h["memcpyed"] and h["codec"] != wire))
+            or h["filter"] != c["shuffle"]
+            or (not h["memcpyed"] and (
+                wire is None or h["compformat"] != wire.COMPFORMAT)))
 
 
 def judge(config: dict, mix: dict, data: list[bytes], calls: list,

@@ -16,7 +16,8 @@ chunk), as numcodecs' BitRound or Quantize filters would drop it:
 - a write cell's control is the program's own ``compress_ctx`` fed the
   rounded words (a lossy writer);
 - a read cell's control is the plain reference put in the program's
-  place, its output rounded (a lossy reader).
+  place, its output rounded (a lossy reader); a getitem cell's, the
+  same, its output the call's items of the reference's chunk, rounded.
 
 The check has to read the control as not correct on every seed. Each
 run prints one JSON line: cell, seed, side, calls and the numbers
@@ -63,6 +64,13 @@ def control_calls(spec: harness.Spec, calls: list) -> list:
         def lossy_reader(chunk):
             return drop_low_bit(reference.decompress(chunk), ts)
         return [(key, lossy_reader, arg, n) for key, _, arg, n in calls]
+    if op == "getitem":
+        def lossy_items(arg):
+            chunk, start, nitems = arg
+            items = reference.decompress(chunk)[start * ts:
+                                                (start + nitems) * ts]
+            return drop_low_bit(items, ts)
+        return [(key, lossy_items, arg, n) for key, _, arg, n in calls]
     raise SystemExit(f"portbench: no control for op {op!r}")
 
 
@@ -74,8 +82,8 @@ def run_side(spec: harness.Spec, seed: int, seconds: float, device,
         calls = control_calls(spec, calls)
     # the program's warm-up as in a run; the control's reads warm
     # nothing and its writes are the program's own calls
-    warm = harness.warm_up(calls, 1 if control and spec.traffic["op"] ==
-                           "decompress" else spec.traffic["warmup_passes"])
+    warm = harness.warm_up(calls, 0 if control and spec.traffic["op"] !=
+                           "compress" else spec.traffic["warmup_passes"])
     run = harness.Run(op=spec.traffic["op"])
     checker = check.Checker(
         harness.due_of(spec.traffic, spec.config, data, warm))

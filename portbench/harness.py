@@ -4,8 +4,12 @@ Everything a cell needs is found by name from ``BENCHMARK.json``: its
 configuration file (``file``), its traffic mix
 (``portbench/traffic/<traffic>.json``) and one reader per metric
 (``portbench/metrics/<metric>.py``, a ``read(run)`` function that returns
-a number, or None where it finds nothing to read). Adding a
-configuration, a mix or a metric adds files and entries and edits none.
+a number, or None where it finds nothing to read). The codec and the
+filter a configuration names are found by name too, in the plain
+reference (``portbench/codecs/``, ``portbench/filters/``) and in the
+frozen writer (``portbench/writer/``, each codec a source of its own).
+Adding a configuration, a codec, a filter, a mix or a metric adds files
+and entries and edits none.
 
 A run: make the cell's data from the seed (``traffic.make_calls``), warm
 up (``warmup_passes`` passes over the inputs), then drive one client in
@@ -113,6 +117,8 @@ class Run:
     latencies_s: list = field(default_factory=list)
     bytes_in: int = 0          # bytes handed to the calls that completed
     bytes_out: int = 0         # bytes they returned
+    completed: dict = field(default_factory=dict)   # key -> calls completed
+    inputs: dict = field(default_factory=dict)      # key -> the call's input
     window_s: float = 0.0
     setup_s: float = 0.0
     launches: dict = field(default_factory=dict)     # gpu.kernels.LAUNCHES
@@ -144,7 +150,9 @@ def due_of(mix: dict, config: dict, data: list, warm: dict):
 def drive(calls, seconds: float, run: Run, checker, tracer=None,
           log=sys.stderr) -> None:
     """The closed loop: call after call over ``calls`` (a list of
-    (key, fn, arg, nbytes_in)) until the window holds ``seconds``. Each
+    (key, fn, arg, nbytes_in)) until the window holds ``seconds`` and
+    two calls at least, so that a call that returns an earlier call's
+    answer shows also in the shortest window. Each
     call's latency runs from its start to the return of its bytes. The
     window runs from the first call's start to the last call's end, less
     the time the check spends comparing each answer between two calls
@@ -155,7 +163,7 @@ def drive(calls, seconds: float, run: Run, checker, tracer=None,
     checking = 0.0
     t0 = time.perf_counter()
     window = 0.0
-    while window < seconds:
+    while window < seconds or i < 2:
         key, fn, arg, nin = calls[i % n]
         a = time.perf_counter()
         try:
@@ -174,6 +182,7 @@ def drive(calls, seconds: float, run: Run, checker, tracer=None,
             run.latencies_s.append(end - a)
             run.bytes_in += nin
             run.bytes_out += len(out)
+            run.completed[key] = run.completed.get(key, 0) + 1
         window = end - t0 - checking
         h0 = time.time_ns() if tracer else 0
         checker.add(key, out)
@@ -230,7 +239,8 @@ def run_cell(spec: Spec, seed: int, seconds: float, trace: bool, device,
     warm = warm_up(calls, spec.traffic["warmup_passes"])
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    run = Run(op=spec.traffic["op"])
+    run = Run(op=spec.traffic["op"],
+              inputs={key: arg for key, _, arg, _ in calls})
     checker = check.Checker(due_of(spec.traffic, spec.config, data, warm))
     kernels.reset_launches()
     backend.reset_calls()

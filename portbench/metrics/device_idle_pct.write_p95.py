@@ -1,0 +1,10 @@
+"""device_idle_pct.write_p95: device_idle_pct.write's reading, in the write
+cell whose end-to-end speed metric is call_ms_p95 alone: there
+compress_GBps, on the host's clock, spreads too widely between runs to
+be bounded (PERF.md)."""
+
+from portbench.metrics._alias import read_as
+
+
+def read(run):
+    return read_as("device_idle_pct.write", run)

@@ -91,32 +91,53 @@ class Tracer:
         t1 = time.time_ns()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        c0 = time.perf_counter()
         self._prof.stop()
         for module, attr, orig in self._saved:
             setattr(module, attr, orig)
+        c1 = time.perf_counter()
         events = device_events(self._prof)
+        c2 = time.perf_counter()
         h0, h1 = self.clock_check
         first = sorted(e for e in events if h0 - 10**9 <= e[0] and e[1] <= h1)
+        prof = self._prof
+        trace = Trace(self.records, events, self.t0, t1,
+                      torch.cuda.get_device_name(self.device)
+                      if self.device.type == "cuda" else "cpu", self.paused,
+                      lambda: launch_times(prof))
         print(f"portbench: profiler: {len(events)} device events; clock "
               f"check: the probe op's device event at "
               f"{(first[0][0] - h0) / 1e3 if first else None} us of a "
-              f"{(h1 - h0) / 1e3} us host bracket", file=log)
-        return Trace(self.records, events, self.t0, t1,
-                     torch.cuda.get_device_name(self.device)
-                     if self.device.type == "cuda" else "cpu", self.paused)
+              f"{(h1 - h0) / 1e3} us host bracket; s to stop the profile "
+              f"{c1 - c0}, to read its events {c2 - c1}, to reduce them "
+              f"{time.perf_counter() - c2}", file=log)
+        return trace
 
 
 def device_events(prof) -> list:
-    """(start ns, end ns, name) of every kernel, copy and set the
-    profile holds, in the host clock."""
+    """(start ns, end ns, name, correlation id) of every kernel, copy and
+    set the profile holds, in the host clock."""
     from torch.autograd import DeviceType
 
     out = []
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
             start = e.start_ns()
-            out.append((start, start + e.duration_ns(), e.name()))
+            out.append((start, start + e.duration_ns(), e.name(),
+                        e.correlation_id()))
     return out
+
+
+def launch_times(prof) -> dict:
+    """correlation id -> host ns of the CUDA API call
+    (``cudaLaunchKernel``, ``cudaMemcpyAsync``, ``cuLaunchKernel``, ...)
+    that queued the device event of that id."""
+    from torch.autograd import DeviceType
+
+    return {e.correlation_id(): e.start_ns()
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() != DeviceType.CUDA
+            and e.name().startswith("cu") and e.correlation_id()}
 
 
 def _merge(starts: np.ndarray, ends: np.ndarray):
@@ -148,11 +169,14 @@ def _covered(starts: np.ndarray, ends: np.ndarray, t) -> np.ndarray:
 class Trace:
     """Spans and device activity of one traced window, all in ns of the
     host clock; readers take seconds from its methods. The window leaves
-    out ``paused`` intervals, the check's comparisons between calls."""
+    out ``paused`` intervals, the check's comparisons between calls.
+    ``launches()`` gives each device event's correlation id the host ns
+    of the call that launched it; it is read only where a reader asks."""
 
     def __init__(self, records, events, t0: int, t1: int, device_kind: str,
-                 paused=()):
+                 paused=(), launches=dict):
         self.t0, self.t1, self.device_kind = t0, t1, device_kind
+        self._launches = launches
         ps = np.array([a for a, _ in paused], dtype=np.int64)
         pe = np.array([b for _, b in paused], dtype=np.int64)
         self.paused_starts, self.paused_ends = _merge(ps, pe)
@@ -163,11 +187,11 @@ class Trace:
             self.spans.setdefault(name, []).append((a, b))
         self.spans = {k: np.array(sorted(v), dtype=np.int64).reshape(-1, 2)
                       for k, v in self.spans.items()}
-        ev = [(max(a, t0), min(b, t1), n) for a, b, n in events
+        ev = [(max(a, t0), min(b, t1), n, c) for a, b, n, c in events
               if b > t0 and a < t1]
         self.ops = ev
-        s = np.array([a for a, _, _ in ev], dtype=np.int64)
-        e = np.array([b for _, b, _ in ev], dtype=np.int64)
+        s = np.array([a for a, _, _, _ in ev], dtype=np.int64)
+        e = np.array([b for _, b, _, _ in ev], dtype=np.int64)
         self.busy_starts, self.busy_ends = _merge(s, e)
         self.busy_s = float((self.busy_ends - self.busy_starts).sum()) / 1e9
         self.breakdown = {"device_ops": self._top_ops(),
@@ -188,9 +212,31 @@ class Trace:
         return float((_covered(bs, be, sp[:, 1])
                       - _covered(bs, be, sp[:, 0])).sum()) / 1e9
 
+    def device_s_launched_in(self, starts, ends):
+        """Seconds of device activity (the union) whose launch on the
+        host lies inside one of the disjoint intervals (starts, ends),
+        wherever on the device it ran in the window; None where the
+        trace ties no device event to a launch inside them."""
+        launch = self._launches()
+        if not self.ops or not launch:
+            return None
+        order = np.argsort(np.asarray(starts, dtype=np.int64))
+        st = np.asarray(starts, dtype=np.int64)[order]
+        en = np.asarray(ends, dtype=np.int64)[order]
+        at = np.array([launch.get(c, -1) for _, _, _, c in self.ops],
+                      dtype=np.int64)
+        i = np.searchsorted(st, at, side="right") - 1
+        take = (i >= 0) & (at >= 0) & (at <= en[np.maximum(i, 0)])
+        if not take.any():
+            return None
+        a = np.array([o[0] for o in self.ops], dtype=np.int64)[take]
+        b = np.array([o[1] for o in self.ops], dtype=np.int64)[take]
+        a, b = _merge(a, b)
+        return float((b - a).sum()) / 1e9
+
     def _top_ops(self, k: int = 10) -> list:
         tot: dict = {}
-        for a, b, n in self.ops:
+        for a, b, n, _ in self.ops:
             tot[n] = tot.get(n, 0) + (b - a)
         top = sorted(tot.items(), key=lambda x: -x[1])[:k]
         return [[n[:160], ns / 1e9] for n, ns in top]

@@ -4,11 +4,11 @@ The control (portbench/control.py: one bit of precision less, a lossy
 writer or a lossy reader in the program's place) must read as not
 correct, and so must a run whose timed path is broken underneath, once
 for each fault a cell can have: a step that returns its state
-unchanged (the answer of an earlier call), half of the batch (half the
-blocks' splits) left out, and an answer altered where it is produced.
-These cells run on one card, so there is no exchange between chips to
-leave out. The runs skip the harness's look for a card and run at a
-size the CPU holds.
+unchanged (the answer of an earlier call; every window holds two calls
+at least), half of the batch (half the blocks' splits) left out, and an
+answer altered where it is produced. These cells run on one card, so
+there is no exchange between chips to leave out. The runs skip the
+harness's look for a card and run at a size the CPU holds.
 
     python -m pytest portbench/tests -q
 """
@@ -19,18 +19,25 @@ import pytest
 import torch
 
 from portbench import control, harness
-from cblosc_tpu_torch.gpu import pipeline
+from portbench.tests._retired import load
+from cblosc_tpu_torch.gpu import host_api, pipeline
 
 CPU = torch.device("cpu")
 CELLS = ["pyblosc-blosclz-c9.write", "zarr-lz4-c5.write",
-         "pyblosc-blosclz-c9.read", "zarr-lz4-c5.read"]
+         "pyblosc-blosclz-c9.read", "zarr-lz4-c5.read",
+         "numcodecs-zlib-c5.read", "zarr-lz4-c5.getitem"]
+# the plain LZ4 and DEFLATE walks are slow on the CPU: one block of 8
+# splits, of 2 KiB (LZ4) and 1 KiB (zlib); a getitem mix reads 8 ranges
+CHUNK_BYTES = {"zarr-lz4-c5.read": 16 << 10, "zarr-lz4-c5.getitem": 16 << 10,
+               "numcodecs-zlib-c5.read": 8 << 10}
 
 
 def spec_of(cell):
-    spec = harness.load_spec(cell)
-    spec.config["chunk_bytes"] = 16 << 10 if cell == "zarr-lz4-c5.read" \
-        else 32 << 10
+    spec = load(cell)
+    spec.config["chunk_bytes"] = CHUNK_BYTES.get(cell, 32 << 10)
     spec.config["working_set_chunks"] = 3
+    if "ranges" in spec.traffic:
+        spec.traffic["ranges"] = 8
     return spec
 
 
@@ -75,6 +82,12 @@ def _half_left_out(name):
                 half = b.shape[0] // 2
                 b[half:] = 0
                 a[half:] = 0
+            elif name == "getitem":             # (blocks, err)
+                # a getitem's answer is a few hundred bytes of a block:
+                # every other byte is left out, so that each answer has
+                # its half
+                a = a.clone()
+                a.reshape(-1)[1::2] = 0
             else:                               # (blocks, err)
                 a = a.clone()
                 flat = a.reshape(-1)
@@ -86,6 +99,13 @@ def _half_left_out(name):
 
 def _altered(name):
     def wrap(fn):
+        if name == "getitem":       # the answer is produced by the byte API
+            def broken_items(*args, **kwargs):
+                out = bytearray(fn(*args, **kwargs))
+                out[7] ^= 0xFF
+                return bytes(out)
+            return broken_items
+
         def broken(*args, **kwargs):
             a, b = fn(*args, **kwargs)
             a = a.clone()
@@ -105,9 +125,13 @@ FAULTS = {"state unchanged": lambda name: _stale,
 def test_run_with_a_broken_timed_path_reads_not_correct(cell, fault,
                                                         monkeypatch):
     spec = spec_of(cell)
-    name = ("compress_blocks" if spec.traffic["op"] == "compress"
-            else "decompress_blocks")
-    monkeypatch.setattr(pipeline, name,
-                        FAULTS[fault](name)(getattr(pipeline, name)))
+    op = spec.traffic["op"]
+    name = {"compress": "compress_blocks"}.get(op, "decompress_blocks")
+    broken = FAULTS[fault]("getitem" if op == "getitem" else name)
+    if op == "getitem" and fault == "answer altered where produced":
+        monkeypatch.setattr(host_api, "getitem",
+                            broken(host_api.getitem))
+    else:
+        monkeypatch.setattr(pipeline, name, broken(getattr(pipeline, name)))
     line = harness.run_cell(spec, 3, 0.3, False, CPU, log=io.StringIO())
     assert line["correct"] is False, line["check"]

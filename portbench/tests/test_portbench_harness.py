@@ -15,10 +15,12 @@ import sys
 import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from portbench import harness
+from portbench.tests._retired import RETIRED, load
 
 ROOT = Path(__file__).resolve().parents[2]
 CELLS = [w["name"] for w in
@@ -28,22 +30,27 @@ SEED = 2**31 + 977          # a seed past 32 signed bits
 
 
 def tiny(spec, chunk_bytes=32 << 10, chunks=3):
-    """The cell at a size the CPU's plain kernels run in seconds."""
+    """The cell at a size the CPU's plain kernels run in seconds: a getitem
+    mix reads 8 ranges."""
     spec.config["chunk_bytes"] = chunk_bytes
     spec.config["working_set_chunks"] = chunks
+    if "ranges" in spec.traffic:
+        spec.traffic["ranges"] = 8
     return spec
 
 
 def chunk_size(cell: str) -> int:
-    # the plain LZ4 walk is slow on the CPU: the C-blosc-written read cell
-    # gets 16 KiB chunks (one block of 8 dense and sparse 2 KiB splits)
-    return 16 << 10 if cell == "zarr-lz4-c5.read" else 32 << 10
+    # the plain LZ4 and DEFLATE walks are slow on the CPU: the cells that
+    # read C-blosc-written chunks get one block of 8 dense and sparse
+    # splits, of 2 KiB (LZ4) and of 1 KiB (zlib)
+    return {"zarr-lz4-c5.read": 16 << 10, "zarr-lz4-c5.getitem": 16 << 10,
+            "numcodecs-zlib-c5.read": 8 << 10}.get(cell, 32 << 10)
 
 
 @pytest.mark.parametrize("trace", [0, 1])
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", CELLS + sorted(RETIRED))
 def test_tiny_pass_prints_the_contract_line(cell, trace):
-    spec = tiny(harness.load_spec(cell), chunk_size(cell))
+    spec = tiny(load(cell), chunk_size(cell))
     line = harness.run_cell(spec, SEED, 0.3, bool(trace), CPU,
                             log=io.StringIO())
     assert line["correct"] is True, line["check"]
@@ -73,7 +80,7 @@ def test_tiny_pass_prints_the_contract_line(cell, trace):
 def test_same_seed_same_inputs_and_every_seed_same_sizes():
     from portbench import traffic
 
-    spec = tiny(harness.load_spec("pyblosc-blosclz-c9.read"))
+    spec = tiny(load("pyblosc-blosclz-c9.read"))
     a = traffic.make_calls(spec.config, spec.traffic, SEED, CPU,
                            io.StringIO())
     b = traffic.make_calls(spec.config, spec.traffic, SEED, CPU,
@@ -212,18 +219,89 @@ def test_a_getitem_mix_needs_only_a_traffic_file(tmp_path):
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
     shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    (tmp_path / "portbench" / "traffic" / "getitem_100.json").write_text(
+    (tmp_path / "portbench" / "traffic" / "getitem_16.json").write_text(
         json.dumps({"op": "getitem", "chunks_written_by": "cblosc_writer",
-                    "items": 100, "ranges": 16, "warmup_passes": 1}))
+                    "items": 16, "ranges": 16, "warmup_passes": 1}))
     bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
     bench["workloads"].append({
-        "name": "zarr-lz4-c5.getitem", "config": "zarr-lz4-c5",
-        "traffic": "getitem_100", "chips": 1, "why": "a test"})
+        "name": "zarr-lz4-c5.getitem_16", "config": "zarr-lz4-c5",
+        "traffic": "getitem_16", "chips": 1, "why": "a test"})
     p95 = next(m for m in bench["end_to_end"] if m["name"] == "call_ms_p95")
-    p95["workloads"].append("zarr-lz4-c5.getitem")
+    p95["workloads"].append("zarr-lz4-c5.getitem_16")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    spec = tiny(harness.load_spec("zarr-lz4-c5.getitem", root=tmp_path),
+    spec = tiny(harness.load_spec("zarr-lz4-c5.getitem_16", root=tmp_path),
                 16 << 10)
     line = harness.run_cell(spec, SEED, 0.3, False, CPU, log=io.StringIO())
     assert line["correct"] is True, line["check"]
     assert set(line["metrics"]) == {"call_ms_p95", "setup_s"}
+
+
+def test_inflate_work_is_counted_from_the_input_chunks():
+    import zlib
+
+    from portbench import cblosc_writer, traffic
+    from portbench.metrics import _coded
+
+    cfg = {"data": {"generator": "synth", "significant_bits": 19},
+           "working_set_chunks": 2, "chunk_bytes": 1 << 20}
+    data = traffic.make_data(cfg, 9)
+    chunks = [cblosc_writer.compress(5, "SHUFFLE", 8, d, "zlib")
+              for d in data]
+    # by hand: the zlib streams of the splits (raw ones are 128 KiB), each
+    # read whole and inflated to its 128 KiB
+    want = []
+    for ch in chunks:
+        pos, n = 16 + 4, 0
+        for _ in range(8):
+            csize = int.from_bytes(ch[pos:pos + 4], "little")
+            stream = ch[pos + 4:pos + 4 + csize]
+            if csize != 128 << 10:
+                assert len(zlib.decompress(stream)) == 128 << 10
+                n += csize + (128 << 10)
+            pos += 4 + csize
+        want.append(n)
+    assert [_coded.coded_bytes(ch, "zlib") for ch in chunks] == want
+    assert 0 < want[0] < 2 * len(data[0])
+    run = harness.Run(op="decompress", inputs=dict(enumerate(chunks)),
+                      completed={0: 3, 1: 2})
+    assert _coded.window_coded_bytes(run, "zlib") == 3 * want[0] + 2 * want[1]
+    lz4 = cblosc_writer.compress(5, "SHUFFLE", 8, data[0], "lz4")
+    assert _coded.coded_bytes(lz4, "zlib") is None
+    run.inputs[1] = lz4
+    assert _coded.window_coded_bytes(run, "zlib") is None
+
+
+def test_device_time_goes_to_the_span_that_launched_it(monkeypatch):
+    from portbench import spans
+    from portbench.metrics import _coded, _program
+
+    # two spans (100-200, 300-400 ns); kernel 1 is launched in the first
+    # and runs past its end, kernel 2 is launched before the second and
+    # runs inside it, kernel 3 has no launch in the trace, copy 4 is
+    # launched in the second and overlaps kernel 2
+    events = [(150, 260, "k1", 1), (310, 350, "k2", 2),
+              (360, 380, "k3", 3), (340, 370, "copy", 4)]
+    launches = {1: 190, 2: 250, 4: 330}
+    t = spans.Trace([], events, 0, 1000, "cpu", launches=lambda: launches)
+    assert t.device_s_launched_in([300, 100], [400, 200]) == (110 + 30) / 1e9
+    assert t.device_s_launched_in([500], [600]) is None
+    # inside a span by the host's interval, not by the launch: k2, k3
+    spans_ = np.array([[100, 200], [300, 400]], dtype=np.int64)
+    t.spans = {"decode_group": spans_}
+    assert t.device_s_in("decode_group") == (50 + 70) / 1e9
+
+    Rec = types.SimpleNamespace
+    recs = [Rec(name="api.decompress_ctx", start_ns=90, end_ns=210, call=0),
+            Rec(name="pipeline.decode_group", start_ns=100, end_ns=200,
+                call=0),
+            Rec(name="api.decompress_ctx", start_ns=290, end_ns=410, call=1),
+            Rec(name="pipeline.decode_group", start_ns=300, end_ns=400,
+                call=1)]
+    monkeypatch.setattr(_program, "window_records", lambda run: recs)
+    run = harness.Run(op="decompress", calls=2, traced=t)
+    assert _coded.device_s_launched_in(
+        run, "api.decompress_ctx", "pipeline.decode_group") == 140 / 1e9
+    # a call whose root the ring let go: nothing is read
+    run.calls = 3
+    assert _coded.device_s_launched_in(
+        run, "api.decompress_ctx", "pipeline.decode_group") is None

@@ -26,7 +26,7 @@ import sys
 
 import numpy as np
 
-SHUFFLES = {"NOSHUFFLE": 0, "SHUFFLE": 1, "BITSHUFFLE": 2}
+from . import filters
 
 
 def rng_for(seed: int, stream: int = 0) -> np.random.Generator:
@@ -68,7 +68,8 @@ def write_chunks(config: dict, traffic: dict, data: list[bytes], device,
     if by == "program":
         from cblosc_tpu_torch import api
 
-        chunks = [api.compress_ctx(c["clevel"], SHUFFLES[c["shuffle"]],
+        doshuffle = filters.BY_NAME[c["shuffle"]].CODE
+        chunks = [api.compress_ctx(c["clevel"], doshuffle,
                                    c["typesize"], d, compressor=c["cname"],
                                    blocksize=c["blocksize"], device=device)
                   for d in data]
@@ -109,8 +110,10 @@ def make_calls(config: dict, traffic: dict, seed: int, device,
     c = config["codec"]
     op = traffic["op"]
     if op == "compress":
+        doshuffle = filters.BY_NAME[c["shuffle"]].CODE
+
         def fn(chunk):
-            return api.compress_ctx(c["clevel"], SHUFFLES[c["shuffle"]],
+            return api.compress_ctx(c["clevel"], doshuffle,
                                     c["typesize"], chunk,
                                     compressor=c["cname"],
                                     blocksize=c["blocksize"], device=device)

@@ -162,3 +162,33 @@ void bit_unshuffle(int ts, int64_t n, const uint8_t* src, uint8_t* dst,
 }
 
 }  // namespace cbt
+
+// Registration with the benchmark's writer (registry.h), not in the
+// original: blosc_c's filter step (blosc.c:599-617), no filter, the
+// byte shuffle where typesize > 1 (flag bit 0), the bit shuffle where
+// the block holds an item (flag bit 2).
+
+#include "registry.h"
+
+namespace {
+
+bool byte_shuffled(int ts, int64_t n, const uint8_t* src, uint8_t* dst,
+                   uint8_t*) {
+  if (ts <= 1) return false;
+  cbt::byte_shuffle(ts, n, src, dst);
+  return true;
+}
+
+bool bit_shuffled(int ts, int64_t n, const uint8_t* src, uint8_t* dst,
+                  uint8_t* tmp) {
+  if (n < ts) return false;
+  cbt::bit_shuffle(ts, n, src, dst, tmp);
+  return true;
+}
+
+[[maybe_unused]] const bool registered =
+    pbw::add_filter({"NOSHUFFLE", 0, nullptr}) &&
+    pbw::add_filter({"SHUFFLE", cbt::kDoShuffle, byte_shuffled}) &&
+    pbw::add_filter({"BITSHUFFLE", cbt::kDoBitshuffle, bit_shuffled});
+
+}  // namespace

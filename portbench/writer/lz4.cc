@@ -283,3 +283,26 @@ int lz4_decode(const uint8_t* src, int length, uint8_t* dst, int maxout) {
 }
 
 }  // namespace cbt
+
+// Registration with the benchmark's writer (registry.h), not in the
+// original: LZ4 at c-blosc's acceleration 10 - clevel, LZ4HC at clevel
+// (blosc.c:412-440), one wire format (compformat 1), LZ4HC an HCR codec.
+
+#include "registry.h"
+
+namespace {
+
+int lz4_at(int clevel, const uint8_t* src, int n, uint8_t* dst, int maxout) {
+  return cbt::lz4_encode(src, n, dst, maxout, 10 - clevel);
+}
+
+int lz4hc_at(int clevel, const uint8_t* src, int n, uint8_t* dst,
+             int maxout) {
+  return cbt::lz4hc_encode(src, n, dst, maxout, clevel);
+}
+
+[[maybe_unused]] const bool registered =
+    pbw::add_codec({"lz4", 1, false, true, lz4_at}) &&
+    pbw::add_codec({"lz4hc", 1, true, true, lz4hc_at});
+
+}  // namespace

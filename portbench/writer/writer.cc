@@ -1,4 +1,4 @@
-// The benchmark's frozen C-blosc-format chunk writer.
+// The benchmark's frozen C-blosc-format chunk writer: the chunk framing.
 //
 // A frozen copy of the compress path of the port's native host engine
 // (cblosc_tpu_torch/native/src/engine.cc: compute_blocksize, split_block,
@@ -6,43 +6,35 @@
 // 1.x's blosc_compress writes with its automatic blocksize. The read
 // cells decode chunks written here, so that no change to the program can
 // change what they read. Differences from the original: one thread (no
-// worker pool) and LZ4 and LZ4HC only (common.h, filters.cc and lz4.cc
-// are copied whole beside this file).
+// worker pool), the forward-compatible split mode only, and no codec or
+// filter named here: each is found by the configuration's name among
+// those its source registers (registry.h), with the properties the
+// framing needs (compformat, the HCR blocksize, whether it splits).
 
 #include "common.h"
+#include "registry.h"
 
 #include <vector>
 
 namespace cbt {
 namespace {
 
-bool hcr_codec(int compcode) {
-  return compcode == kLZ4HC || compcode == kZlib || compcode == kZstd;
-}
+using pbw::Codec;
+using pbw::Filter;
 
-bool split_block(int compcode, int typesize, int blocksize, int splitmode) {
-  switch (splitmode) {
-    case kAlwaysSplit:
-      return true;
-    case kNeverSplit:
-      return false;
-    case kAutoSplit:
-      return (compcode == kBloscLZ || compcode == kSnappy) &&
-             typesize <= kMaxSplits && blocksize / typesize >= kMinBufferSize;
-    case kForwardCompatSplit:
-    default:
-      return compcode != kZstd && typesize <= kMaxSplits &&
-             blocksize / typesize >= kMinBufferSize;
-  }
+// c-blosc's forward-compatible split rule (kForwardCompatSplit)
+bool split_block(const Codec& codec, int typesize, int blocksize) {
+  return codec.split && typesize <= kMaxSplits &&
+         blocksize / typesize >= kMinBufferSize;
 }
 
 int64_t compute_blocksize(int clevel, int typesize, int64_t nbytes,
-                          int compcode, int splitmode) {
+                          const Codec& codec) {
   if (nbytes < typesize) return 1;
   int64_t bs = nbytes;
   if (nbytes >= kL1) {
     bs = kL1;
-    if (hcr_codec(compcode)) bs *= 2;
+    if (codec.hcr) bs *= 2;
     switch (clevel) {
       case 0: bs /= 4; break;
       case 1: bs /= 2; break;
@@ -55,11 +47,11 @@ int64_t compute_blocksize(int clevel, int typesize, int64_t nbytes,
       case 8: bs *= 8; break;
       case 9:
         bs *= 8;
-        if (hcr_codec(compcode)) bs *= 2;
+        if (codec.hcr) bs *= 2;
         break;
     }
   }
-  if (clevel > 0 && split_block(compcode, typesize, (int)bs, splitmode)) {
+  if (clevel > 0 && split_block(codec, typesize, (int)bs)) {
     if (bs > (1 << 18)) bs = 1 << 18;
     bs *= typesize;
     if (bs < (1 << 16)) bs = 1 << 16;
@@ -72,18 +64,13 @@ int64_t compute_blocksize(int clevel, int typesize, int64_t nbytes,
 
 // Per-block compression (role of blosc_c, blosc.c:591-722). Returns the
 // encoded size, or -1 when the block does not fit its budget.
-int64_t compress_block(int compcode, int clevel, int doshuffle, int typesize,
-                       bool dont_split, const uint8_t* block, int64_t bsize,
-                       bool leftover, uint8_t* out, int64_t budget,
-                       uint8_t* tmp, uint8_t* tmp2) {
+int64_t compress_block(const Codec& codec, const Filter& filter, int clevel,
+                       int typesize, bool dont_split, const uint8_t* block,
+                       int64_t bsize, bool leftover, uint8_t* out,
+                       int64_t budget, uint8_t* tmp, uint8_t* tmp2) {
   const uint8_t* filtered = block;
-  if (doshuffle == kShuffle && typesize > 1) {
-    byte_shuffle(typesize, bsize, block, tmp);
+  if (filter.apply && filter.apply(typesize, bsize, block, tmp, tmp2))
     filtered = tmp;
-  } else if (doshuffle == kBitShuffle && bsize >= typesize) {
-    bit_shuffle(typesize, bsize, block, tmp, tmp2);
-    filtered = tmp;
-  }
   int nsplits = (dont_split || leftover) ? 1 : typesize;
   int64_t neblock = bsize / nsplits;
   int64_t pos = 0;
@@ -93,19 +80,8 @@ int64_t compress_block(int compcode, int clevel, int doshuffle, int typesize,
     if (maxout > remaining) maxout = remaining;
     if (maxout <= 0) return -1;
     const uint8_t* stream = filtered + s * neblock;
-    int cbytes = 0;
-    switch (compcode) {
-      case kLZ4:
-        cbytes = lz4_encode(stream, (int)neblock, out + pos + 4, (int)maxout,
-                            10 - clevel);
-        break;
-      case kLZ4HC:
-        cbytes = lz4hc_encode(stream, (int)neblock, out + pos + 4,
-                              (int)maxout, clevel);
-        break;
-      default:
-        return -2;
-    }
+    int cbytes = codec.encode(clevel, stream, (int)neblock, out + pos + 4,
+                              (int)maxout);
     if (cbytes < 0) return -1;
     if (cbytes == 0 || cbytes == neblock) {
       if (pos + 4 + neblock > budget) return -1;
@@ -124,33 +100,34 @@ int64_t compress_block(int compcode, int clevel, int doshuffle, int typesize,
 extern "C" {
 
 // Compress a buffer into one chunk with c-blosc's automatic blocksize
-// and split rule. Returns cbytes, 0 when the data does not fit destsize,
-// or a negative error code (-2: a codec this writer does not hold).
-int64_t pbw_compress_chunk(int clevel, int doshuffle, int typesize,
+// and split rule, by the configuration's filter (shuffle) and codec
+// (cname). Returns cbytes, 0 when the data does not fit destsize, or a
+// negative error code (-2: a codec no source registers, -3: a filter
+// none registers).
+int64_t pbw_compress_chunk(int clevel, const char* filter_name, int typesize,
                            const uint8_t* src, int64_t nbytes,
-                           uint8_t* dst, int64_t destsize, int compcode) {
+                           uint8_t* dst, int64_t destsize,
+                           const char* codec_name) {
   using namespace cbt;
   if (clevel < 0 || clevel > 9 || typesize <= 0) return -10;
   if (destsize < kMaxOverhead) return -10;
-  if (compcode != kLZ4 && compcode != kLZ4HC) return -2;
+  const pbw::Codec* codec = pbw::find_codec(codec_name);
+  if (!codec) return -2;
+  const pbw::Filter* filter = pbw::find_filter(filter_name);
+  if (!filter) return -3;
   if (typesize > kMaxTypesize) typesize = 1;
   if (destsize > nbytes + kMaxOverhead) destsize = nbytes + kMaxOverhead;
 
-  int64_t blocksize = compute_blocksize(clevel, typesize, nbytes, compcode,
-                                        kForwardCompatSplit);
+  int64_t blocksize = compute_blocksize(clevel, typesize, nbytes, *codec);
   int64_t nblocks = blocksize > 0 ? nbytes / blocksize : 0;
   int64_t leftover = blocksize > 0 ? nbytes % blocksize : 0;
   if (leftover) nblocks++;
 
   bool memcpyed = (clevel == 0) || (nbytes < kMinBufferSize);
-  bool dont_split = !split_block(compcode, typesize, (int)blocksize,
-                                 kForwardCompatSplit);
-  uint8_t flags = 0;
-  if (doshuffle == kShuffle) flags |= kDoShuffle;
-  if (doshuffle == kBitShuffle) flags |= kDoBitshuffle;
+  bool dont_split = !split_block(*codec, typesize, (int)blocksize);
+  uint8_t flags = filter->flag;
   if (dont_split) flags |= kDontSplit;
-  static const uint8_t compformat[6] = {0, 1, 1, 2, 3, 4};
-  flags |= compformat[compcode] << 5;
+  flags |= codec->compformat << 5;
 
   auto write_header = [&](uint8_t fl, int64_t cbytes) {
     dst[0] = 2;  // chunk format version
@@ -183,8 +160,8 @@ int64_t pbw_compress_chunk(int clevel, int doshuffle, int typesize,
       bsize = leftover;
       lob = true;
     }
-    int64_t n = compress_block(compcode, clevel, doshuffle, typesize,
-                               dont_split, src + j * blocksize, bsize, lob,
+    int64_t n = compress_block(*codec, *filter, clevel, typesize, dont_split,
+                               src + j * blocksize, bsize, lob,
                                scratch.data() + j * budget, budget, tl.data(),
                                tl.data() + blocksize);
     sizes[(size_t)j] = n;
